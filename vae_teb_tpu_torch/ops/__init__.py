@@ -1,0 +1,13 @@
+"""Signal-processing operators: filter banks, scattering, reduced-rate phase harmonics."""
+
+from .filterbank import FilterBank, build_filter_bank, calibrate, output_size
+from .phase import (PairTable, PhaseScattering1D, build_pair_table,
+                    select_cross_coefficients, select_phase_coefficients)
+from .scattering import Scattering1D, reflect_pad, subsample_fourier, tukey_window
+
+__all__ = [
+    "FilterBank", "build_filter_bank", "calibrate", "output_size",
+    "Scattering1D", "reflect_pad", "subsample_fourier", "tukey_window",
+    "PairTable", "PhaseScattering1D", "build_pair_table",
+    "select_phase_coefficients", "select_cross_coefficients",
+]
