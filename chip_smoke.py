@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving path and training step on an NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA device
 
 Phases, each of which raises on failure (exit code 1):
   1. device: CUDA must be present (exit 2 otherwise, before any result);
-  2. build the wavefront kernel (vae_teb_tpu_torch/kernels/wavefront_fwd.cu)
-     with nvcc for sm_90a;
-  3. kernel against its plain PyTorch version on the card, at the serving
-     shape (B=32, two 4-layer H=64 streams, S=300, K=303) and a 4+2-layer
-     shape, in fp32 (max-abs <= 1e-5) and bf16 storage (<= 1.6e-2), with
-     CUDA-event times (median of 15 runs);
+  2. build the wavefront kernels (vae_teb_tpu_torch/kernels/wavefront_fwd.cu
+     and wavefront_bwd.cu, one nvcc each, in parallel) for sm_90a;
+  3. kernels against their plain PyTorch versions on the card, at the
+     serving/training shape (B=32, two 4-layer H=64 streams, S=300, K=303)
+     and a 4+2-layer shape, in fp32 and bf16 storage, with CUDA-event times
+     (median of 15 runs): the serving forward and the residual forward
+     (max-abs <= 1e-5 fp32, 1.6e-2 bf16; the stored gates per element to
+     that times max(1, |gate|)), the reverse wavefront (max-abs <= 1e-5
+     fp32, 3e-2 bf16, of max|plain| on each output);
   4. serve raw (B, 5760) FHR/UP windows at B = 1, 8 and 32 through the
      full-width fp32 model (seeded init) and the production reduced-rate
      frontend; check shapes, finiteness, that every forward launched the
-     kernel, agreement with the plain recurrence on the card, and
+     serving kernel, agreement with the plain recurrence on the card, and
      agreement with a CPU run on a B=1 window;
-  5. print the card's nvidia-smi name and power limit, one JSON line for
+  5. train the full-width model (Trainer defaults: fp32, beta 1e-5, clip
+     0.5, AdamW lr 1e-4): 10 steps at B=32 and 5 at B=128 on fixed batches
+     of raw windows through the frontend on the card; check finite losses,
+     a falling B=32 loss, one residual-forward and one backward launch per
+     step; then one B=8 step against the plain recurrence on the card and
+     one B=2 step against the CPU on identical coefficients and noise;
+  6. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels, and last {"ok": true, "device": {...}}.
 """
 
@@ -34,7 +43,20 @@ BATCHES = (1, 8, 32)
 REQUESTS = 5          # timed requests per batch size (after one warm-up)
 TIMED_RUNS = 15       # kernel / plain timing repeats
 FP32_TOL, BF16_TOL = 1e-5, 1.6e-2
+BWD_FP32_TOL, BWD_BF16_TOL = 1e-5, 3e-2   # of max|plain| per output
 SERVE_REL_TOL = 1e-4  # kernel vs plain recurrence in the full model
+# Training bars; PERF.md gives the measured values and the reasons. Per
+# gradient leaf: max-abs over the leaf's max (floored at 1e-2 of the
+# largest leaf's max); model-wide: relative L2 of the difference.
+GRAD_REL_TOL = 1e-4   # runs that share a bit-identical forward
+# Runs whose forwards differ by rounding: a ReLU input within rounding of 0
+# falls on either side, which moves a gradient by one position's term.
+KINK_REL_TOL = 1e-1   # worst leaf
+KINK_L2_TOL = 2e-2    # model-wide
+METRIC_REL_TOL = 1e-4  # card vs CPU losses and running statistics
+PARAM_FRAC_TOL = 1e-3  # card vs CPU: share of weights more than lr/100 apart
+PARAM_L2_TOL = 1e-1   # card vs CPU: rel-L2 of the parameter difference
+TRAIN_STEPS = ((32, 10), (128, 5))   # (batch, steps) on one fixed batch each
 # Seed 0's final single-channel ReLU conv is dead on these inputs (the
 # decoder heads would see zeros and their check would be vacuous); seed 2's
 # is active.
@@ -97,6 +119,70 @@ def check_kernel(device):
                 raise AssertionError(f"wavefront kernel disagrees with its "
                                      f"plain version: {err} > {tol}")
             results[(label, dtype)] = (err, ms, plain_ms)
+    return results
+
+
+def check_training_kernels(device):
+    """The residual forward and the reverse wavefront against their plain
+    versions on the same inputs: errors and CUDA-event times."""
+    from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
+                                           wavefront_fwd, wavefront_fwd_plain)
+    gen = torch.Generator().manual_seed(4)
+    results, failed = {}, []
+    for label, depths in (("2x4 layers", (4, 4)), ("4+2 layers", (4, 2))):
+        for dtype, tol, btol in ((torch.float32, FP32_TOL, BWD_FP32_TOL),
+                                 (torch.bfloat16, BF16_TOL, BWD_BF16_TOL)):
+            args = recurrence_inputs(gen, 32, 300, 64, depths, dtype, device)
+            got = wavefront_fwd(*args, 300, with_residuals=True)
+            want = wavefront_fwd_plain(*args, 300, with_residuals=True)
+            torch.cuda.synchronize()
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            # the stored pre-activation gates reach |g| ~ 8: held to tol *
+            # max(1, |g|), two storage ulps at each value's scale
+            scaled = max(((g.float() - w.float()).abs() / (
+                w.float().abs().clamp_min(1.0) if i == 3 else 1.0)
+            ).max().item() for i, (g, w) in enumerate(zip(got, want)))
+            ms = cuda_time_ms(lambda: wavefront_fwd(*args, 300,
+                                                    with_residuals=True))
+            plain_ms = cuda_time_ms(lambda: wavefront_fwd_plain(
+                *args, 300, with_residuals=True))
+            name = str(dtype)[6:]
+            log(f"residual forward {label} B=32 S=300 {name}: max_abs_err="
+                f"{err!r}, scaled {scaled!r} (tol {tol}) kernel {ms!r} ms, "
+                f"plain {plain_ms!r} ms")
+            if not scaled <= tol:
+                failed.append(f"residual forward {label} {name}: {scaled} > "
+                              f"{tol}")
+            results[("fwd_res", label, dtype)] = (err, ms, plain_ms)
+
+            W, _, _, h0, c0, lvec = args
+            _, _, _, gates_seq, c_seq = want
+            c_prev = torch.cat([c0[None], c_seq[:-1]])
+            K, B, UH = c_seq.shape
+            rnd = lambda *shape: torch.randn(shape, generator=gen).to(
+                device=device, dtype=dtype)
+            bargs = (W, gates_seq, c_seq, c_prev, rnd(K, B, UH), rnd(B, UH),
+                     rnd(B, UH), lvec)
+            got = wavefront_bwd(*bargs, 300)
+            want = wavefront_bwd_plain(*bargs, 300)
+            torch.cuda.synchronize()
+            abs_err, rel = 0.0, 0.0
+            for g, w in zip(got, want):
+                e = (g.float() - w.float()).abs().max().item()
+                abs_err = max(abs_err, e)
+                rel = max(rel, e / max(w.float().abs().max().item(), 1e-30))
+            ms = cuda_time_ms(lambda: wavefront_bwd(*bargs, 300))
+            plain_ms = cuda_time_ms(lambda: wavefront_bwd_plain(*bargs, 300))
+            log(f"backward {label} B=32 S=300 {name}: max_abs_err={abs_err!r}, "
+                f"max-abs/max|plain| {rel!r} (tol {btol}) kernel {ms!r} ms, "
+                f"plain {plain_ms!r} ms")
+            if not rel <= btol:
+                failed.append(f"backward {label} {name}: {rel} > {btol}")
+            results[("bwd", label, dtype)] = (abs_err, ms, plain_ms)
+    if failed:
+        raise AssertionError("kernels disagree with their plain versions: "
+                             + "; ".join(failed))
     return results
 
 
@@ -214,6 +300,197 @@ def check_against_cpu(server, x):
         f"max-abs/max {worst!r} (tol {SERVE_REL_TOL})")
 
 
+def grad_report(got, want):
+    """(worst per-leaf error, its leaf, model-wide relative L2) of the
+    gradients `got` against `want`. A leaf's error is its max-abs
+    difference over its largest entry, that scale floored at 1e-2 of the
+    largest entry of any leaf (leaves whose gradient cancels; see
+    PERF.md)."""
+    top = max(w.abs().max().item() for w in want.values())
+    worst, leaf, num, den = 0.0, None, 0.0, 0.0
+    for k, w in want.items():
+        d = got[k].float() - w.float()
+        err = d.abs().max().item() / max(w.abs().max().item(), 1e-2 * top)
+        if err >= worst:
+            worst, leaf = err, k
+        num += d.square().sum().item()
+        den += w.float().square().sum().item()
+    return worst, leaf, (num / den) ** 0.5
+
+
+def train(device):
+    """The training phases; returns the main path's launch counts."""
+    import copy
+    from vae_teb_tpu_torch import (PhaseScattering1D, SeqVaeTeb, Trainer,
+                                   TrainerConfig, WindowFrontend,
+                                   init_parameters)
+    from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
+                                           wavefront_fwd, wavefront_fwd_plain)
+
+    t0 = time.perf_counter()
+    model = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
+    cfg = TrainerConfig()
+    trainer = Trainer(model, cfg, device)
+    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    log(f"training set-up (init, optimizer, frontend plan): "
+        f"{time.perf_counter() - t0:.2f} s; TrainerConfig {cfg}")
+    gen = torch.Generator(device=device).manual_seed(5)
+    beta = trainer.beta_fn(0)   # constant kld_beta, 1e-5
+
+    raw_len = model.decoder.raw_len          # 16 S
+    latent = (raw_len // 16, 32)             # (S, latent width) of eps
+
+    def batch_of(b):
+        x = torch.randn((2, b, N), generator=gen, device=device)
+        return x[0], x[1], torch.randn((b, raw_len), generator=gen,
+                                       device=device)
+
+    def fields(coeffs, y_raw):
+        return dict(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs), fhr=y_raw)
+
+    wavefront_fwd.launches = 0
+    wavefront_fwd.residual_launches = 0
+    wavefront_bwd.launches = 0
+    steps = 0
+    for b, n_steps in TRAIN_STEPS:
+        fhr, up, y_raw = batch_of(b)
+        torch.cuda.reset_peak_memory_stats(device)
+        totals, with_fe, without_fe = [], [], []
+        for step in range(n_steps):
+            before = (wavefront_fwd.launches, wavefront_fwd.residual_launches,
+                      wavefront_bwd.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coeffs = frontend(fhr, up)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = trainer.train_step(fields(coeffs, y_raw), beta)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            steps += 1
+            metrics = {k: v.item() for k, v in metrics.items()}
+            launched = (wavefront_fwd.launches - before[0],
+                        wavefront_fwd.residual_launches - before[1],
+                        wavefront_bwd.launches - before[2])
+            if launched != (0, 1, 1):
+                raise AssertionError(f"train step B={b} #{step}: launches "
+                                     f"(serving fwd, residual fwd, bwd) "
+                                     f"{launched}, expected (0, 1, 1)")
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"train step B={b} #{step}: non-finite "
+                                     f"metrics {metrics}")
+            totals.append(metrics["total_loss"])
+            if step:                                   # step 0 warms up
+                with_fe.append(t2 - t0)
+                without_fe.append(t2 - t1)
+            log(f"train B={b} step {step}: " + ", ".join(
+                f"{k} {v!r}" for k, v in sorted(metrics.items())))
+        peak = torch.cuda.max_memory_allocated(device)
+        med_with, med_without = (statistics.median(with_fe),
+                                 statistics.median(without_fe))
+        log(f"train B={b}: median step {med_without * 1e3!r} ms without the "
+            f"frontend, {med_with * 1e3!r} ms with it, over {n_steps - 1} "
+            f"steps after a warm-up; {b / med_with!r} windows/s with the "
+            f"frontend ({b / med_without!r} without); peak device memory "
+            f"{peak} bytes")
+        if b == TRAIN_STEPS[0][0] and not totals[-1] < totals[0]:
+            raise AssertionError(f"fixed-batch total_loss did not fall over "
+                                 f"{n_steps} steps: {totals}")
+    counts = (wavefront_fwd.residual_launches, wavefront_bwd.launches)
+    if counts != (steps, steps) or wavefront_fwd.launches:
+        raise AssertionError(f"{steps} train steps launched the residual "
+                             f"forward {counts[0]}, the backward {counts[1]} "
+                             f"and the serving forward "
+                             f"{wavefront_fwd.launches} times")
+    log(f"train launches: residual forward {counts[0]}, backward "
+        f"{counts[1]} in {steps} steps")
+
+    failed = []
+
+    def check(name, value, bar):
+        if not value <= bar:
+            failed.append(f"{name}: {value!r} > {bar!r}")
+
+    # one B=8 step from the same weights and noise: the kernels against
+    # (a) the plain reverse wavefront behind the kernel forward, so both
+    # runs share a bit-identical forward, and (b) the plain recurrence for
+    # both directions (autograd differentiates the plain loop), whose
+    # forward differs by rounding
+    fhr, up, y_raw = batch_of(8)
+    batch = fields(frontend(fhr, up), y_raw)
+    eps = torch.randn((8,) + latent, generator=gen, device=device)
+    wavefront_module = sys.modules["vae_teb_tpu_torch.kernels.wavefront"]
+    grads = {}
+    for name in ("kernels", "plain backward", "plain recurrence"):
+        m = copy.deepcopy(model)
+        if name == "plain recurrence":
+            m.recurrence = wavefront_fwd_plain
+        if name == "plain backward":
+            wavefront_module.wavefront_bwd = wavefront_bwd_plain
+        try:
+            Trainer(m, cfg, device).train_step(batch, beta, eps=eps)
+        finally:
+            wavefront_module.wavefront_bwd = wavefront_bwd
+        grads[name] = {k: p.grad for k, p in m.named_parameters()}
+        del m
+    for name, bar, l2_bar in (("plain backward", GRAD_REL_TOL, GRAD_REL_TOL),
+                              ("plain recurrence", KINK_REL_TOL, KINK_L2_TOL)):
+        worst, leaf, l2 = grad_report(grads["kernels"], grads[name])
+        log(f"train step kernels vs {name} (B=8): {len(grads[name])} "
+            f"gradient leaves, worst max-abs/max {worst!r} ({leaf}; bar "
+            f"{bar}), model-wide rel-L2 {l2!r} (bar {l2_bar})")
+        check(f"kernels vs {name}: worst leaf {leaf}", worst, bar)
+        check(f"kernels vs {name}: rel-L2", l2, l2_bar)
+    del grads
+
+    # one B=2 step on identical coefficients and noise on the CPU
+    fhr, up, y_raw = batch_of(2)
+    batch = fields(frontend(fhr, up), y_raw)
+    eps = torch.randn((2,) + latent, generator=gen, device=device)
+    gpu_model, cpu_model = copy.deepcopy(model), copy.deepcopy(model).cpu()
+    before = [p.detach().clone() for p in cpu_model.parameters()]
+    m_gpu = Trainer(gpu_model, cfg, device).train_step(batch, beta, eps=eps)
+    m_cpu = Trainer(cpu_model, cfg, "cpu").train_step(
+        {k: v.cpu() for k, v in batch.items()}, beta, eps=eps.cpu())
+    rel = {k: abs(m_gpu[k].item() / m_cpu[k].item() - 1) for k in m_cpu}
+    norm_err = rel.pop("grad_norm")   # a model-wide L2: moves with kinks
+    loss_err = max(rel.values())
+    check("card vs CPU losses", loss_err, METRIC_REL_TOL)
+    check("card vs CPU grad_norm", norm_err, KINK_L2_TOL)
+    worst, leaf, l2 = grad_report(
+        {k: p.grad.cpu() for k, p in gpu_model.named_parameters()},
+        {k: p.grad for k, p in cpu_model.named_parameters()})
+    check(f"card vs CPU gradients: worst leaf {leaf}", worst, KINK_REL_TOL)
+    check("card vs CPU gradients: rel-L2", l2, KINK_L2_TOL)
+    # updated parameters: Adam's first step moves each weight by about
+    # lr * sign(g), so an element whose gradient is rounding noise, or
+    # sits at a ReLU kink, can step the other way (up to 2 lr apart)
+    diff = [p.detach().cpu() - q.detach() for p, q in
+            zip(gpu_model.parameters(), cpu_model.parameters())]
+    upd = [q.detach() - b for q, b in zip(cpu_model.parameters(), before)]
+    p_err = max(d.abs().max().item() for d in diff)
+    n = sum(d.numel() for d in diff)
+    p_frac = sum((d.abs() > 1e-2 * cfg.lr).sum().item() for d in diff) / n
+    p_l2 = (sum(d.square().sum().item() for d in diff)
+            / sum(u.square().sum().item() for u in upd)) ** 0.5
+    check("card vs CPU parameters: share of elements more than lr/100 "
+          "apart", p_frac, PARAM_FRAC_TOL)
+    check("card vs CPU parameters: rel-L2 of the update", p_l2, PARAM_L2_TOL)
+    s_err = max(((a.cpu() - c).abs().max() / c.abs().max().clamp_min(1e-30)
+                 ).item() for a, c in zip(gpu_model.buffers(),
+                                          cpu_model.buffers()))
+    check("card vs CPU running statistics", s_err, METRIC_REL_TOL)
+    log(f"train step card vs CPU (B=2, identical coefficients and noise): "
+        f"losses rel {loss_err!r}, grad_norm rel {norm_err!r}; gradients "
+        f"worst max-abs/max {worst!r} "
+        f"({leaf}), rel-L2 {l2!r}; updated parameters max-abs {p_err!r}, "
+        f"share more than lr/100 apart {p_frac!r} of {n}, rel-L2 of the "
+        f"update {p_l2!r}; running statistics max-abs/max {s_err!r}")
+    if failed:
+        raise AssertionError("training checks failed:\n" + "\n".join(failed))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -226,28 +503,39 @@ def main() -> int:
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from vae_teb_tpu_torch.kernels import build
+    sources = ("wavefront_fwd.cu", "wavefront_bwd.cu")
     t0 = time.perf_counter()
-    build.load("wavefront_fwd.cu")
-    log(f"built wavefront_fwd.cu in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_logs.get("wavefront_fwd.cu", "").splitlines():
-        if "ptxas info" in line:
-            log(line.strip())
+    build.load_all(sources)
+    log(f"built {', '.join(sources)} in parallel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for src in sources:
+        for line in build.build_logs.get(src, "").splitlines():
+            if "ptxas info" in line:
+                log(f"{src}: {line.strip()}")
 
     kernel_results = check_kernel(device)
+    train_kernel_results = check_training_kernels(device)
     launches = serve(device)
+    res_launches, bwd_launches = train(device)
 
-    err, ms, plain_ms = kernel_results[("2x4 layers", torch.float32)]
+    fp32 = ("2x4 layers", torch.float32)
+    entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches,
+                kernel_results[fp32]),
+               ("wavefront_fwd_residuals", "wavefront_fwd.cu", 80,
+                res_launches, train_kernel_results[("fwd_res",) + fp32]),
+               ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches,
+                train_kernel_results[("bwd",) + fp32]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     print(json.dumps({"kernels": [{
-        "name": "wavefront_fwd", "route": "cuda",
-        "source": "vae_teb_tpu_torch/kernels/wavefront_fwd.cu",
-        "replaces": "vae_teb_tpu/models/wavefront_pallas.py:80",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "name": name, "route": "cuda",
+        "source": f"vae_teb_tpu_torch/kernels/{src}",
+        "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
+        "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for name, src, line, n, (err, ms, plain_ms) in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

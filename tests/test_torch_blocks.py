@@ -41,7 +41,7 @@ def _run_pair(flax_module, torch_module, x, seed, **apply_kw):
     variables = _randomize(flax_module.init(jax.random.PRNGKey(0),
                                             jnp.asarray(x), **apply_kw), seed)
     want = np.asarray(flax_module.apply(variables, jnp.asarray(x), **apply_kw))
-    load_flax_variables(torch_module, variables)
+    load_flax_variables(torch_module, variables).eval()   # flax train=False
     with torch.no_grad():
         got = torch_module(torch.as_tensor(x)).numpy()
     return got, want

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
 
-from .wavefront import wavefront_fwd
-from .wavefront_ref import wavefront_fwd_plain
+from .wavefront import (WavefrontFunction, wavefront_bwd, wavefront_fwd,
+                        wavefront_recurrence)
+from .wavefront_ref import wavefront_bwd_plain, wavefront_fwd_plain
 
-__all__ = ["wavefront_fwd", "wavefront_fwd_plain"]
+__all__ = ["WavefrontFunction", "wavefront_bwd", "wavefront_bwd_plain",
+           "wavefront_fwd", "wavefront_fwd_plain", "wavefront_recurrence"]

@@ -15,7 +15,8 @@ import hashlib
 import os
 import subprocess
 import tempfile
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
@@ -66,3 +67,11 @@ def load(source: str) -> ctypes.CDLL:
                 os.remove(tmp)
     _loaded[source] = ctypes.CDLL(lib_path)
     return _loaded[source]
+
+
+def load_all(sources: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build and load several sources, one nvcc process each, all started
+    together (the compiles run in parallel); raises on the first failure."""
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        libs = list(pool.map(load, sources))
+    return dict(zip(sources, libs))

@@ -30,6 +30,12 @@
 // stays under the SM count. Keeping W_eff slices resident in shared memory
 // across a cluster, and skipping its zero blocks, are later work.
 //
+// Training needs the residuals the backward reads (wavefront_bwd.cu): the
+// entry points *_res_* also store the pre-activation gates of every step,
+// rounded to the storage type (thread t writes gates_seq[k, row, q*UH + t],
+// so a warp's stores are coalesced), and the carried c after every step.
+// The serving entry points compile without those stores.
+//
 // Plain C interface: each entry point launches on the given stream and
 // returns cudaGetLastError() of the launch.
 
@@ -59,7 +65,7 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <typename T>
+template <typename T, bool RESIDUALS>
 __global__ void wavefront_fwd_kernel(const T* __restrict__ w,
                                      const T* __restrict__ b,
                                      const T* __restrict__ xs,
@@ -67,6 +73,8 @@ __global__ void wavefront_fwd_kernel(const T* __restrict__ w,
                                      const T* __restrict__ c0,
                                      const int* __restrict__ lvec,
                                      T* __restrict__ h_seq,
+                                     T* __restrict__ gates_seq,
+                                     T* __restrict__ c_seq,
                                      T* __restrict__ h_fin,
                                      T* __restrict__ c_fin,
                                      int K, int B, int UH, int H, int S) {
@@ -120,6 +128,14 @@ __global__ void wavefront_fwd_kernel(const T* __restrict__ w,
       }
       h_next[t] = h;
       store(h_seq + ((size_t)k * B + row) * UH + t, h);
+      if (RESIDUALS) {
+        T* gk = gates_seq + ((size_t)k * B + row) * G + t;
+        store(gk, gi);
+        store(gk + UH, gf);
+        store(gk + 2 * UH, gg);
+        store(gk + 3 * UH, go);
+        store(c_seq + ((size_t)k * B + row) * UH + t, c);
+      }
     }
     __syncthreads();
   }
@@ -129,15 +145,17 @@ __global__ void wavefront_fwd_kernel(const T* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, bool RESIDUALS>
 int launch(const void* w, const void* b, const void* xs, const void* h0,
-           const void* c0, const void* lvec, void* h_seq, void* h_fin,
-           void* c_fin, int K, int B, int UH, int H, int S, void* stream) {
+           const void* c0, const void* lvec, void* h_seq, void* gates_seq,
+           void* c_seq, void* h_fin, void* c_fin, int K, int B, int UH, int H,
+           int S, void* stream) {
   const int threads = (UH + 31) / 32 * 32;
   const size_t smem = 2 * (size_t)UH * sizeof(float);
-  wavefront_fwd_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
+  wavefront_fwd_kernel<T, RESIDUALS><<<B, threads, smem, (cudaStream_t)stream>>>(
       (const T*)w, (const T*)b, (const T*)xs, (const T*)h0, (const T*)c0,
-      (const int*)lvec, (T*)h_seq, (T*)h_fin, (T*)c_fin, K, B, UH, H, S);
+      (const int*)lvec, (T*)h_seq, (T*)gates_seq, (T*)c_seq, (T*)h_fin,
+      (T*)c_fin, K, B, UH, H, S);
   return (int)cudaGetLastError();
 }
 
@@ -148,8 +166,8 @@ extern "C" int wavefront_fwd_f32(const void* w, const void* b, const void* xs,
                                  const void* lvec, void* h_seq, void* h_fin,
                                  void* c_fin, int K, int B, int UH, int H,
                                  int S, void* stream) {
-  return launch<float>(w, b, xs, h0, c0, lvec, h_seq, h_fin, c_fin, K, B, UH,
-                       H, S, stream);
+  return launch<float, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr, nullptr,
+                              h_fin, c_fin, K, B, UH, H, S, stream);
 }
 
 extern "C" int wavefront_fwd_bf16(const void* w, const void* b,
@@ -157,6 +175,29 @@ extern "C" int wavefront_fwd_bf16(const void* w, const void* b,
                                   const void* c0, const void* lvec,
                                   void* h_seq, void* h_fin, void* c_fin, int K,
                                   int B, int UH, int H, int S, void* stream) {
-  return launch<__nv_bfloat16>(w, b, xs, h0, c0, lvec, h_seq, h_fin, c_fin, K,
-                               B, UH, H, S, stream);
+  return launch<__nv_bfloat16, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr,
+                                      nullptr, h_fin, c_fin, K, B, UH, H, S,
+                                      stream);
+}
+
+extern "C" int wavefront_fwd_res_f32(const void* w, const void* b,
+                                     const void* xs, const void* h0,
+                                     const void* c0, const void* lvec,
+                                     void* h_seq, void* gates_seq, void* c_seq,
+                                     void* h_fin, void* c_fin, int K, int B,
+                                     int UH, int H, int S, void* stream) {
+  return launch<float, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq, c_seq,
+                             h_fin, c_fin, K, B, UH, H, S, stream);
+}
+
+extern "C" int wavefront_fwd_res_bf16(const void* w, const void* b,
+                                      const void* xs, const void* h0,
+                                      const void* c0, const void* lvec,
+                                      void* h_seq, void* gates_seq,
+                                      void* c_seq, void* h_fin, void* c_fin,
+                                      int K, int B, int UH, int H, int S,
+                                      void* stream) {
+  return launch<__nv_bfloat16, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq,
+                                     c_seq, h_fin, c_fin, K, B, UH, H, S,
+                                     stream);
 }

@@ -1,19 +1,19 @@
 """Model blocks: residual MLPs, causal and reflect conv blocks, the LSTM.
 
-Port of `vae_teb_tpu.models.blocks` (eval mode). Layout is (B, S, C)
+Port of `vae_teb_tpu.models.blocks`. Layout is (B, S, C)
 throughout, as in the JAX package; convolutions transpose to PyTorch's
 (B, C, S) around `F.conv1d` only. Submodule names follow the flax
 parameter tree so `convert.py` can map a flax checkpoint mechanically.
 
 Parity with flax: LayerNorm eps is 1e-6 (PyTorch's default is 1e-5); flax's
-`nn.gelu` is the tanh approximation; BatchNorm normalizes with its running
-statistics (eps 1e-5).
+`nn.gelu` is the tanh approximation; BatchNorm follows flax's arithmetic
+and momentum convention (see `BatchNorm`).
 
 The LSTMs run in the wavefront schedule only: all layers of all fused
 streams advance as one staircase recurrence whose step is one product with
 a packed block-bidiagonal weight (see `run_lstm_streams`). The recurrence
-is `kernels.wavefront_fwd`, a CUDA kernel on the card and plain PyTorch on
-the CPU.
+is `kernels.wavefront_recurrence`: CUDA kernels on the card (forward, and
+the reverse wavefront for gradients) and plain PyTorch on the CPU.
 """
 
 from __future__ import annotations
@@ -25,10 +25,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..kernels import wavefront_fwd
+from ..kernels import wavefront_recurrence
 
 LAYER_NORM_EPS = 1e-6   # flax nn.LayerNorm default
 BATCH_NORM_EPS = 1e-5   # flax nn.BatchNorm default
+# flax's momentum is the fraction of the running average KEPT:
+# running = 0.1 * running + 0.9 * batch (the JAX package's BN_MOMENTUM)
+BN_MOMENTUM = 0.1
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +67,16 @@ def _layer_norm(features: int) -> nn.LayerNorm:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis: flax
-    `nn.BatchNorm(use_running_average=True)` arithmetic."""
+    """Batch norm over the last axis with flax `nn.BatchNorm` arithmetic.
+
+    Training mode (`self.training`) normalizes with the fp32 batch mean over
+    every other axis and the biased variance E[x^2] - E[x]^2, clipped at 0,
+    and updates the running statistics in place as
+    `running = BN_MOMENTUM * running + (1 - BN_MOMENTUM) * batch` (the
+    variance update is biased too). `torch.nn.BatchNorm1d` differs on both
+    counts: its momentum weights the batch, and its running variance is
+    unbiased. Eval mode normalizes with the running statistics.
+    """
 
     def __init__(self, features: int):
         super().__init__()
@@ -75,8 +86,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + BATCH_NORM_EPS) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            xf = x.float()
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                for ra, batch in ((self.running_mean, mean),
+                                  (self.running_var, var)):
+                    ra.copy_(BN_MOMENTUM * ra + (1 - BN_MOMENTUM) * batch)
+        mul = torch.rsqrt(var + BATCH_NORM_EPS) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 def _conv_bsc(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -260,7 +282,7 @@ def _wavefront_unpack(h_fin, c_fin, h_seq, operands):
 
 
 def run_lstm_streams(streams: Sequence[LSTMStream],
-                     recurrence: Callable = wavefront_fwd
+                     recurrence: Callable = wavefront_recurrence
                      ) -> List[Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
     """Run independent prepared LSTM streams as ONE wavefront recurrence.
 
@@ -269,8 +291,13 @@ def run_lstm_streams(streams: Sequence[LSTMStream],
     advances in the same step: K = S + D - 1 steps in all (D the deepest
     stream), each one product with the packed W_eff.
 
-    `recurrence` is the forward recurrence; the default dispatches by
-    device to the CUDA kernel or its plain version. Returns, per stream,
+    `recurrence` is the wavefront recurrence, called as
+    recurrence(W_eff, b_packed, xs_wave, h0, c0, lvec, S) -> (h_seq, h_fin,
+    c_fin); the default, `kernels.wavefront_recurrence`, dispatches by
+    device to the CUDA kernels or their plain versions and differentiates
+    through the reverse wavefront. Autograd reaches the per-layer weights
+    through the packing (`_wavefront_pack`, `_wavefront_xs` write them into
+    slices of zero tensors) and the unpack slices. Returns, per stream,
     (ys (B, S, H), (h_stack, c_stack)) with the final states stacked
     (num_layers, B, H).
     """

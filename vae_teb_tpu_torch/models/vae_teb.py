@@ -1,7 +1,7 @@
 """SeqVaeTeb: sequence VAE with Target-Encoder-Bank conditioning.
 
-Port of `vae_teb_tpu.models.vae_teb` (eval-mode forward, fp32). The
-information flow is the JAX package's:
+Port of `vae_teb_tpu.models.vae_teb` (fp32). The information flow is the
+JAX package's:
 
   SourceEncoder       x_ph (B,S,130) -> mu_x (B,S,32)          [causal]
   TargetEncoder       y_st (B,S,43), y_ph (B,S,44)
@@ -14,8 +14,11 @@ information flow is the JAX package's:
 PyTorch modules need their input widths at construction, so the decoder's
 two dense heads are sized from `seq_len` (300 in production: 4800-wide).
 Every latent is LATENT_DIM wide and the decoder upsamples 16x (the JAX
-defaults; no caller sets others). BatchNorm uses its running statistics:
-this package serves; it does not train yet.
+defaults; no caller sets others). The module's mode is flax's `train`
+flag: in training mode (`model.train()`) BatchNorm normalizes with batch
+statistics and updates its running averages; in eval mode it uses the
+running averages. Sampling of z is a separate switch (`deterministic`), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn as nn
 
-from ..kernels import wavefront_fwd
+from ..kernels import wavefront_recurrence
 from .blocks import (LSTM, CausalConvBlock, ReflectConvBlock, ResidualMLP,
                      _layer_norm, geometric_schedule, gelu, run_lstm_streams)
 
@@ -72,12 +75,18 @@ def decoder_loss(linear_output, raw_mu, raw_logvar, y_st, y_ph, y_raw):
             "total_decoder_loss": mse + nll}
 
 
-def compute_loss(outputs: Dict, y_st, y_ph, y_raw, beta: float = 1.0) -> Dict:
-    """Reconstruction (MSE + NLL) + beta * KL(q || p)."""
+def compute_loss(outputs: Dict, y_st, y_ph, y_raw, beta: float = 1.0,
+                 compute_kld_loss: bool = True) -> Dict:
+    """Reconstruction (MSE + NLL) + beta * KL(q || p); the KL term is 0
+    when compute_kld_loss is False."""
     losses = decoder_loss(outputs["linear_output"], outputs["mu_pr"],
                           outputs["logvar_pr"], y_st, y_ph, y_raw)
-    kld = gaussian_kld(outputs["mu_prior"], outputs["logvar_prior"],
-                       outputs["mu_post"], outputs["logvar_post"])
+    if compute_kld_loss:
+        kld = gaussian_kld(outputs["mu_prior"], outputs["logvar_prior"],
+                           outputs["mu_post"], outputs["logvar_post"])
+    else:
+        kld = torch.zeros((), dtype=torch.float32,
+                          device=losses["total_decoder_loss"].device)
     return {"reconstruction_loss": losses["total_decoder_loss"],
             "mse_loss": losses["mse_loss"], "nll_loss": losses["nll_loss"],
             "kld_loss": kld,
@@ -242,19 +251,21 @@ class Decoder(nn.Module):
 
 
 class SeqVaeTeb(nn.Module):
-    """Full TEB sequence VAE, eval mode.
+    """Full TEB sequence VAE.
 
-    The attribute `recurrence` is the forward wavefront recurrence both
-    encoder LSTMs run through: `kernels.wavefront_fwd`, which dispatches by
-    device (CUDA kernel, or plain PyTorch on the CPU). A caller may swap in
-    `kernels.wavefront_fwd_plain` to compare the two on the card.
+    The attribute `recurrence` is the wavefront recurrence both encoder
+    LSTMs run through: `kernels.wavefront_recurrence`, which dispatches by
+    device (CUDA kernels, or plain PyTorch on the CPU) and, when a gradient
+    is recorded, runs the reverse-wavefront backward. A caller may swap in
+    `kernels.wavefront_fwd_plain` (autograd then differentiates the plain
+    loop) to compare the two on the card.
     """
 
     def __init__(self, input_channels: int = 130, n_scattering: int = 43,
                  n_phase: int = 44, lstm_hidden_dim: int = 64,
                  lstm_num_layers: int = 4, seq_len: int = 300):
         super().__init__()
-        self.recurrence: Callable = wavefront_fwd
+        self.recurrence: Callable = wavefront_recurrence
         self.source_encoder = SourceEncoder(input_channels, lstm_hidden_dim,
                                             lstm_num_layers)
         self.target_encoder = TargetEncoder(lstm_hidden_dim, lstm_num_layers,
@@ -278,21 +289,28 @@ class SeqVaeTeb(nn.Module):
                 "mu_post": mu_post, "logvar_post": logvar_post}
 
     def forward(self, y_st, y_ph, x_ph, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
-        """deterministic=True decodes the posterior mean; otherwise z is
-        sampled with noise from `generator` (required, on the inputs'
-        device)."""
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """deterministic=True decodes the posterior mean; otherwise
+        z = mu_post + eps * exp(logvar_post / 2) with standard-normal eps
+        drawn from `generator` (on the inputs' device), or the caller's
+        `eps` of mu_post's shape (noise shared between two runs, or with
+        the JAX package). One of the two is required."""
         enc = self.encode(y_st, y_ph, x_ph)
         mu, logvar = enc["mu_post"], enc["logvar_post"]
         if deterministic:
             z = mu
         else:
-            if generator is None:
-                raise ValueError("sampling needs an explicit torch.Generator")
-            eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                              device=mu.device)
-            z = mu + eps * torch.exp(0.5 * logvar)
+            if eps is None:
+                if generator is None:
+                    raise ValueError("sampling needs an explicit "
+                                     "torch.Generator or eps")
+                eps = torch.randn(mu.shape, generator=generator,
+                                  dtype=mu.dtype, device=mu.device)
+            elif eps.shape != mu.shape:
+                raise ValueError(f"eps has shape {tuple(eps.shape)}, "
+                                 f"expected {tuple(mu.shape)}")
+            z = mu + eps.to(mu) * torch.exp(0.5 * logvar)
         linear_output, mu_pr, logvar_pr = self.decoder(z)
         return {"z": z, "linear_output": linear_output,
                 "mu_pr": mu_pr, "logvar_pr": logvar_pr, **enc}
