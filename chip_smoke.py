@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path and training step on an NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root, one CUDA device
+    python3 chip_smoke.py             # from the repository root, one CUDA device
+    python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
+
+Run with --kernels from a copy placed at the root of another checkout, it
+times that checkout's kernels (the wrappers' signatures are unchanged since
+the first kernels), so two versions compare on one card.
 
 Phases, each of which raises on failure (exit code 1):
   1. device: CUDA must be present (exit 2 otherwise, before any result);
   2. build the wavefront kernels (vae_teb_tpu_torch/kernels/wavefront_fwd.cu
-     and wavefront_bwd.cu, one nvcc each, in parallel) for sm_90a;
+     and wavefront_bwd.cu, one nvcc each, in parallel) for sm_90a; print
+     each instantiation's ptxas registers and spills, and the launch plan
+     of each main-path batch (rows per cluster, clusters of 8 CTAs, shared
+     memory) with the clusters the card holds at once;
   3. kernels against their plain PyTorch versions on the card, at the
-     serving/training shape (B=32, two 4-layer H=64 streams, S=300, K=303)
-     and a 4+2-layer shape, in fp32 and bf16 storage, with CUDA-event times
-     (median of 15 runs): the serving forward and the residual forward
-     (max-abs <= 1e-5 fp32, 1.6e-2 bf16; the stored gates per element to
-     that times max(1, |gate|)), the reverse wavefront (max-abs <= 1e-5
-     fp32, 3e-2 bf16, of max|plain| on each output);
+     serving/training shape (two 4-layer H=64 streams, S=300, K=303) at
+     B = 32 (fp32 and bf16 storage), 128 and 1, and a 4+2-layer shape:
+     the serving forward and the residual forward (max-abs <= 1e-5 fp32,
+     1.6e-2 bf16; the stored gates per element to that times max(1,
+     |gate|)), the reverse wavefront (max-abs <= 1e-5 fp32, 3e-2 bf16, of
+     max|plain| on each output). At 2x4 layers, B = 32 and 128 fp32 and
+     B = 32 bf16, also CUDA-event times (median of 15 runs; plain 5), the
+     bound (fp32 operations on the non-zero weight blocks over 67 TFLOP/s,
+     or bytes over 3.35 TB/s) and the yardstick: cuDNN's LSTM
+     (`torch.nn.LSTM`, one per stream) computing the same function, held
+     to the kernel's outputs at 1e-4 of max (bf16 storage: 1.6e-2) and
+     timed forward and backward-data;
   4. serve raw (B, 5760) FHR/UP windows at B = 1, 8 and 32 through the
      full-width fp32 model (seeded init) and the production reduced-rate
      frontend; check shapes, finiteness, that every forward launched the
@@ -41,9 +55,16 @@ import torch
 N = 5760
 BATCHES = (1, 8, 32)
 REQUESTS = 5          # timed requests per batch size (after one warm-up)
-TIMED_RUNS = 15       # kernel / plain timing repeats
+TIMED_RUNS = 15       # kernel and yardstick timing repeats
+PLAIN_RUNS = 5        # plain-version timing repeats (host-bound loops)
+# published peaks of one H100 SXM: fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 FP32_TOL, BF16_TOL = 1e-5, 1.6e-2
 BWD_FP32_TOL, BWD_BF16_TOL = 1e-5, 3e-2   # of max|plain| per output
+# cuDNN yardstick vs the kernel's outputs, of max: fp32 1e-4; in bf16
+# storage the two round h and c at other points, so bf16's forward bar
+LIBRARY_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: BF16_TOL}
 SERVE_REL_TOL = 1e-4  # kernel vs plain recurrence in the full model
 # Training bars; PERF.md gives the measured values and the reasons. Per
 # gradient leaf: max-abs over the leaf's max (floored at 1e-2 of the
@@ -86,103 +107,275 @@ def cuda_time_ms(fn, runs: int = TIMED_RUNS) -> float:
 
 def recurrence_inputs(gen, b, s, h, depths, dtype, device):
     """Random wavefront operands (W_eff, b, xs_wave, h0, c0, lvec) from a
-    seeded CPU generator."""
+    seeded CPU generator, masked to the structure `_wavefront_pack` and
+    `_wavefront_xs` give them: W_eff holds only each unit's recurrent block
+    and, for a unit of layer >= 1, its feed block from the unit below; the
+    packed bias only layers >= 1; xs_wave only the layer-0 units' columns of
+    the first S steps. The kernels read only those blocks of W_eff."""
     U = sum(depths)
     UH, K = U * h, s + max(depths) - 1
     rnd = lambda *shape: torch.randn(shape, generator=gen)
     lvec = torch.as_tensor(np.concatenate([np.arange(d) for d in depths]),
                            dtype=torch.int32)
-    args = (rnd(UH, 4 * UH) / np.sqrt(UH), rnd(4 * UH) * 0.1,
-            rnd(K, b, 4 * UH), rnd(b, UH) * 0.2, rnd(b, UH) * 0.2)
+    w_mask = torch.zeros(U, 1, 1, U, 1)
+    for u in range(U):
+        w_mask[u, :, :, u] = 1
+        if lvec[u] > 0:
+            w_mask[u - 1, :, :, u] = 1
+    deep = (lvec > 0).float()[None, :, None]              # (1, U, 1)
+    x_mask = torch.zeros(K, 1, 1, U, 1)
+    x_mask[:s, :, :, lvec == 0] = 1
+    W = (rnd(U, h, 4, U, h) * w_mask / np.sqrt(2 * h)).reshape(UH, 4 * UH)
+    bias = (rnd(4, U, h) * 0.1 * deep).reshape(4 * UH)
+    xs = (rnd(K, b, 4, U, h) * x_mask).reshape(K, b, 4 * UH)
+    args = (W, bias, xs, rnd(b, UH) * 0.2, rnd(b, UH) * 0.2)
     return tuple(a.to(device=device, dtype=dtype) for a in args) + (
         lvec.to(device),)
 
 
-def check_kernel(device):
-    from vae_teb_tpu_torch.kernels import wavefront_fwd, wavefront_fwd_plain
-    gen = torch.Generator().manual_seed(0)
-    results = {}
-    for label, depths in (("2x4 layers", (4, 4)), ("4+2 layers", (4, 2))):
-        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-            args = recurrence_inputs(gen, 32, 300, 64, depths, dtype, device)
-            got = wavefront_fwd(*args, 300)
-            want = wavefront_fwd_plain(*args, 300)
-            torch.cuda.synchronize()
-            err = max((g.float() - w.float()).abs().max().item()
-                      for g, w in zip(got, want))
-            ms = cuda_time_ms(lambda: wavefront_fwd(*args, 300))
-            plain_ms = cuda_time_ms(lambda: wavefront_fwd_plain(*args, 300))
-            log(f"kernel {label} B=32 S=300 {str(dtype)[6:]}: "
-                f"max_abs_err={err!r} (tol {tol}) kernel {ms!r} ms, "
-                f"plain {plain_ms!r} ms")
-            if not err <= tol:
-                raise AssertionError(f"wavefront kernel disagrees with its "
-                                     f"plain version: {err} > {tol}")
-            results[(label, dtype)] = (err, ms, plain_ms)
-    return results
+def bound(kind, B, K, U, H, n_feed, itemsize):
+    """(bound_ms, bound_by): the least time the card could take for one
+    call, the larger of the fp32 operations the non-zero weight blocks need
+    (2 * H * 4H per block, per row, per step) over the fp32 peak and the
+    bytes of every input read once and every output written once over the
+    memory rate."""
+    UH, G = U * H, 4 * U * H
+    blocks = U + n_feed
+    flops = 2 * H * 4 * H * blocks * B * K
+    weights = blocks * H * 4 * H
+    if kind == "bwd":     # gates_seq, c_seq, c_prev_seq, dY, dh0, dc0 in
+        elems = weights + K * B * G + 3 * K * B * UH + 2 * B * UH
+        elems += K * B * G + 2 * B * UH      # dgates_seq, dh, dc out
+    else:                 # b, xs_wave, h0, c0 in; h_seq, h_fin, c_fin out
+        elems = weights + G + K * B * G + 2 * B * UH
+        elems += K * B * UH + 2 * B * UH
+        if kind == "fwd_res":                # gates_seq, c_seq out
+            elems += K * B * G + K * B * UH
+    nbytes = elems * itemsize + 4 * U        # + lvec
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
 
 
-def check_training_kernels(device):
-    """The residual forward and the reverse wavefront against their plain
-    versions on the same inputs: errors and CUDA-event times."""
+def cudnn_streams(args, depths, S):
+    """The yardstick: one torch.nn.LSTM (cuDNN on the card) per stream that
+    computes what the wavefront computes on these operands. Layer 0 takes
+    the stream's xs (S, B, 4H) through an identity input weight (the
+    hoisted projection and layer 0's bias already live in xs); layer l
+    takes W_hh from the recurrent block and, for l >= 1, W_ih and the bias
+    from the feed block and the packed bias; h0, c0 are the wavefront's.
+    Returns [(lstm, xs, h0, c0)] per stream; the port never calls this."""
+    W, b, xs_wave, h0, c0, lvec = args
+    U = lvec.numel()
+    K, B, G = xs_wave.shape
+    H = G // 4 // U
+    blk = W.view(U, H, 4, U, H)
+    b4 = b.view(4, U, H)
+    x5 = xs_wave.view(K, B, 4, U, H)
+    streams, off = [], 0
+    for d in depths:
+        lstm = torch.nn.LSTM(4 * H, H, num_layers=d).to(xs_wave.device,
+                                                        xs_wave.dtype)
+        with torch.no_grad():
+            for l in range(d):
+                u = off + l
+                p = lambda name: getattr(lstm, f"{name}_l{l}")
+                p("weight_hh").copy_(blk[u, :, :, u].reshape(H, 4 * H).t())
+                p("bias_hh").zero_()
+                if l:
+                    p("weight_ih").copy_(
+                        blk[u - 1, :, :, u].reshape(H, 4 * H).t())
+                    p("bias_ih").copy_(b4[:, u].reshape(4 * H))
+                else:
+                    p("weight_ih").copy_(torch.eye(4 * H))
+                    p("bias_ih").zero_()
+        lstm.requires_grad_(False)
+        lstm.flatten_parameters()
+        state = lambda s: s.view(B, U, H)[:, off:off + d].transpose(
+            0, 1).contiguous()
+        streams.append((lstm, x5[:S, :, :, off].reshape(S, B, 4 * H)
+                        .contiguous(), state(h0), state(c0)))
+        off += d
+    return streams
+
+
+def cudnn_check(streams, depths, h_seq, h_fin, c_fin, S):
+    """max-abs/max of the yardstick's top-layer ys and final (h, c) against
+    the wavefront's unpacked outputs."""
+    worst, off = 0.0, 0
+    H = streams[0][2].shape[-1]
+    for (lstm, x, hx, cx), d in zip(streams, depths):
+        with torch.no_grad():
+            ys, (hn, cn) = lstm(x, (hx, cx))
+        top = off + d - 1
+        cols = slice(off * H, (off + d) * H)
+        pairs = ((ys, h_seq[d - 1:d - 1 + S, :, top * H:(top + 1) * H]),
+                 (hn, h_fin[:, cols].view(-1, d, H).transpose(0, 1)),
+                 (cn, c_fin[:, cols].view(-1, d, H).transpose(0, 1)))
+        for lib, ours in pairs:
+            ref = ours.float()
+            worst = max(worst, ((lib.float() - ref).abs().max()
+                                / ref.abs().max().clamp_min(1e-30)).item())
+        off += d
+    return worst
+
+
+def cudnn_times(streams, gen):
+    """CUDA-event ms of the yardstick's forward and of its backward-data
+    (autograd.grad of ys, h_n, c_n with respect to xs, h0, c0 after one
+    forward; the weights need no gradient), both streams back to back."""
+    def fwd():
+        with torch.no_grad():
+            for lstm, x, hx, cx in streams:
+                lstm(x, (hx, cx))
+    graphs = []
+    for lstm, x, hx, cx in streams:
+        leaves = [t.detach().requires_grad_(True) for t in (x, hx, cx)]
+        ys, (hn, cn) = lstm(leaves[0], (leaves[1], leaves[2]))
+        outs = (ys, hn, cn)
+        cots = tuple(torch.randn(o.shape, generator=gen).to(o) for o in outs)
+        graphs.append((outs, leaves, cots))
+
+    def bwd():
+        for outs, leaves, cots in graphs:
+            torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+    return cuda_time_ms(fwd), cuda_time_ms(bwd)
+
+
+def check_residency(device):
+    """The launch plans of the main path's shapes as the wrappers make
+    them: rows per cluster chosen so that every cluster of U=8 CTAs is
+    resident at once, by the card's cudaOccupancyMaxActiveClusters."""
+    from vae_teb_tpu_torch.kernels.wavefront import (_card_resident,
+                                                     _launch_plan)
+    for b in (1, 8, 32, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            held = _card_resident(device, dtype, 8, 64)
+            plan = _launch_plan(b, 8, 64, dtype, held)
+            log(f"B={b} {str(dtype)[6:]}: {plan.clusters} clusters of 8 CTAs "
+                f"x {plan.rows} rows, shared memory {plan.fwd_smem} / "
+                f"{plan.bwd_smem} B (forward / backward); the card holds "
+                f"{held(plan.rows, plan.fwd_smem, plan.bwd_smem)} such "
+                f"clusters at once")
+
+
+# (depths, batch, storage dtype, timed): every case checks the serving
+# forward, the residual forward and the reverse wavefront against their
+# plain versions; timed cases also time them, their plain versions and the
+# cuDNN yardstick, and compute the bound
+KERNEL_CASES = (((4, 4), 32, torch.float32, True),
+                ((4, 4), 32, torch.bfloat16, True),
+                ((4, 4), 128, torch.float32, True),
+                ((4, 2), 32, torch.float32, False),
+                ((4, 2), 32, torch.bfloat16, False),
+                ((4, 4), 1, torch.float32, False))
+
+
+def check_kernels(device, S=300, H=64):
+    """The three kernels against their plain versions on the card, with
+    times, bounds and the cuDNN yardstick; returns {(kind, depths, B,
+    dtype): (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}."""
     from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
                                            wavefront_fwd, wavefront_fwd_plain)
     gen = torch.Generator().manual_seed(4)
     results, failed = {}, []
-    for label, depths in (("2x4 layers", (4, 4)), ("4+2 layers", (4, 2))):
-        for dtype, tol, btol in ((torch.float32, FP32_TOL, BWD_FP32_TOL),
-                                 (torch.bfloat16, BF16_TOL, BWD_BF16_TOL)):
-            args = recurrence_inputs(gen, 32, 300, 64, depths, dtype, device)
-            got = wavefront_fwd(*args, 300, with_residuals=True)
-            want = wavefront_fwd_plain(*args, 300, with_residuals=True)
-            torch.cuda.synchronize()
-            err = max((g.float() - w.float()).abs().max().item()
-                      for g, w in zip(got, want))
-            # the stored pre-activation gates reach |g| ~ 8: held to tol *
-            # max(1, |g|), two storage ulps at each value's scale
-            scaled = max(((g.float() - w.float()).abs() / (
-                w.float().abs().clamp_min(1.0) if i == 3 else 1.0)
-            ).max().item() for i, (g, w) in enumerate(zip(got, want)))
-            ms = cuda_time_ms(lambda: wavefront_fwd(*args, 300,
-                                                    with_residuals=True))
-            plain_ms = cuda_time_ms(lambda: wavefront_fwd_plain(
-                *args, 300, with_residuals=True))
-            name = str(dtype)[6:]
-            log(f"residual forward {label} B=32 S=300 {name}: max_abs_err="
-                f"{err!r}, scaled {scaled!r} (tol {tol}) kernel {ms!r} ms, "
-                f"plain {plain_ms!r} ms")
-            if not scaled <= tol:
-                failed.append(f"residual forward {label} {name}: {scaled} > "
-                              f"{tol}")
-            results[("fwd_res", label, dtype)] = (err, ms, plain_ms)
+    for depths, b, dtype, timed in KERNEL_CASES:
+        fp32 = dtype == torch.float32
+        tol = FP32_TOL if fp32 else BF16_TOL
+        btol = BWD_FP32_TOL if fp32 else BWD_BF16_TOL
+        name = str(dtype)[6:]
+        label = f"{'x'.join(map(str, depths))} layers B={b} S={S} {name}"
+        args = recurrence_inputs(gen, b, S, H, depths, dtype, device)
+        W, _, xs, h0, c0, lvec = args
+        K, U = xs.shape[0], lvec.numel()
+        n_feed = int((lvec > 0).sum())
+        time_pair = (lambda f, g: (cuda_time_ms(f), cuda_time_ms(g, PLAIN_RUNS))
+                     ) if timed else (lambda f, g: (None, None))
 
-            W, _, _, h0, c0, lvec = args
-            _, _, _, gates_seq, c_seq = want
-            c_prev = torch.cat([c0[None], c_seq[:-1]])
-            K, B, UH = c_seq.shape
-            rnd = lambda *shape: torch.randn(shape, generator=gen).to(
-                device=device, dtype=dtype)
-            bargs = (W, gates_seq, c_seq, c_prev, rnd(K, B, UH), rnd(B, UH),
-                     rnd(B, UH), lvec)
-            got = wavefront_bwd(*bargs, 300)
-            want = wavefront_bwd_plain(*bargs, 300)
-            torch.cuda.synchronize()
-            abs_err, rel = 0.0, 0.0
-            for g, w in zip(got, want):
-                e = (g.float() - w.float()).abs().max().item()
-                abs_err = max(abs_err, e)
-                rel = max(rel, e / max(w.float().abs().max().item(), 1e-30))
-            ms = cuda_time_ms(lambda: wavefront_bwd(*bargs, 300))
-            plain_ms = cuda_time_ms(lambda: wavefront_bwd_plain(*bargs, 300))
-            log(f"backward {label} B=32 S=300 {name}: max_abs_err={abs_err!r}, "
-                f"max-abs/max|plain| {rel!r} (tol {btol}) kernel {ms!r} ms, "
-                f"plain {plain_ms!r} ms")
-            if not rel <= btol:
-                failed.append(f"backward {label} {name}: {rel} > {btol}")
-            results[("bwd", label, dtype)] = (abs_err, ms, plain_ms)
+        got = wavefront_fwd(*args, S)
+        want = wavefront_fwd_plain(*args, S)
+        torch.cuda.synchronize()
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        ms, plain_ms = time_pair(lambda: wavefront_fwd(*args, S),
+                                 lambda: wavefront_fwd_plain(*args, S))
+        log(f"serving forward {label}: max_abs_err={err!r} (tol {tol}) "
+            f"kernel {ms!r} ms, plain {plain_ms!r} ms")
+        if not err <= tol:
+            failed.append(f"serving forward {label}: {err} > {tol}")
+        fwd_out = got
+        results[("fwd", depths, b, dtype)] = [err, ms, plain_ms]
+
+        got = wavefront_fwd(*args, S, with_residuals=True)
+        want = wavefront_fwd_plain(*args, S, with_residuals=True)
+        torch.cuda.synchronize()
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        # the stored pre-activation gates reach |g| ~ 8: held to tol *
+        # max(1, |g|), two storage ulps at each value's scale
+        scaled = max(((g.float() - w.float()).abs() / (
+            w.float().abs().clamp_min(1.0) if i == 3 else 1.0)
+        ).max().item() for i, (g, w) in enumerate(zip(got, want)))
+        ms, plain_ms = time_pair(
+            lambda: wavefront_fwd(*args, S, with_residuals=True),
+            lambda: wavefront_fwd_plain(*args, S, with_residuals=True))
+        log(f"residual forward {label}: max_abs_err={err!r}, scaled "
+            f"{scaled!r} (tol {tol}) kernel {ms!r} ms, plain {plain_ms!r} ms")
+        if not scaled <= tol:
+            failed.append(f"residual forward {label}: {scaled} > {tol}")
+        results[("fwd_res", depths, b, dtype)] = [err, ms, plain_ms]
+
+        _, _, _, gates_seq, c_seq = want
+        c_prev = torch.cat([c0[None], c_seq[:-1]])
+        rnd = lambda *shape: torch.randn(shape, generator=gen).to(
+            device=device, dtype=dtype)
+        UH = U * H
+        bargs = (W, gates_seq, c_seq, c_prev, rnd(K, b, UH), rnd(b, UH),
+                 rnd(b, UH), lvec)
+        got = wavefront_bwd(*bargs, S)
+        want = wavefront_bwd_plain(*bargs, S)
+        torch.cuda.synchronize()
+        abs_err, rel = 0.0, 0.0
+        for g, w in zip(got, want):
+            e = (g.float() - w.float()).abs().max().item()
+            abs_err = max(abs_err, e)
+            rel = max(rel, e / max(w.float().abs().max().item(), 1e-30))
+        ms, plain_ms = time_pair(lambda: wavefront_bwd(*bargs, S),
+                                 lambda: wavefront_bwd_plain(*bargs, S))
+        log(f"reverse wavefront {label}: max_abs_err={abs_err!r}, "
+            f"max-abs/max|plain| {rel!r} (tol {btol}) kernel {ms!r} ms, "
+            f"plain {plain_ms!r} ms")
+        if not rel <= btol:
+            failed.append(f"reverse wavefront {label}: {rel} > {btol}")
+        results[("bwd", depths, b, dtype)] = [abs_err, ms, plain_ms]
+
+        if not timed:
+            continue
+        lib = {"fwd": None, "fwd_res": None, "bwd": None}
+        try:
+            streams = cudnn_streams(args, depths, S)
+            lib_err = cudnn_check(streams, depths, *fwd_out, S)
+            lib_tol = LIBRARY_REL_TOL[dtype]
+            log(f"cuDNN LSTM yardstick {label}: ys, h_n, c_n against the "
+                f"kernel max-abs/max {lib_err!r} (tol {lib_tol})")
+            if not lib_err <= lib_tol:
+                failed.append(f"cuDNN yardstick {label}: {lib_err} > "
+                              f"{lib_tol}")
+            lib_fwd, lib_bwd = cudnn_times(streams, gen)
+            lib = {"fwd": lib_fwd, "fwd_res": lib_fwd, "bwd": lib_bwd}
+        except RuntimeError as e:     # a type cuDNN's LSTM does not take
+            log(f"cuDNN LSTM yardstick {label}: not available ({e})")
+        for kind in ("fwd", "fwd_res", "bwd"):
+            bnd = bound(kind, b, K, U, H, n_feed, xs.element_size())
+            results[(kind, depths, b, dtype)] += [lib[kind], bnd]
+            _, ms, _ = results[(kind, depths, b, dtype)][:3]
+            log(f"{kind} {label}: kernel {ms!r} ms, cuDNN {lib[kind]!r} ms, "
+                f"bound {bnd[0]!r} ms ({bnd[1]}), {bnd[0] / ms:.4%} of the "
+                f"bound")
     if failed:
-        raise AssertionError("kernels disagree with their plain versions: "
-                             + "; ".join(failed))
+        raise AssertionError("kernels disagree with their plain versions "
+                             "or the yardstick: " + "; ".join(failed))
     return results
 
 
@@ -491,7 +684,11 @@ def train(device):
     return counts
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -508,38 +705,46 @@ def main() -> int:
     build.load_all(sources)
     log(f"built {', '.join(sources)} in parallel in "
         f"{time.perf_counter() - t0:.2f} s")
-    for src in sources:
+    for src in sources:   # per instantiation: registers, spills
         for line in build.build_logs.get(src, "").splitlines():
-            if "ptxas info" in line:
+            if "Used" in line or "spill" in line:
                 log(f"{src}: {line.strip()}")
+    if kernels_only:          # phase 3 alone, also on an older checkout
+        check_kernels(device)
+        return 0
+    check_residency(device)
 
-    kernel_results = check_kernel(device)
-    train_kernel_results = check_training_kernels(device)
+    kernels = check_kernels(device)
     launches = serve(device)
     res_launches, bwd_launches = train(device)
 
-    fp32 = ("2x4 layers", torch.float32)
-    entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches,
-                kernel_results[fp32]),
+    case = ((4, 4), 32, torch.float32)
+    entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd"),
                ("wavefront_fwd_residuals", "wavefront_fwd.cu", 80,
-                res_launches, train_kernel_results[("fwd_res",) + fp32]),
-               ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches,
-                train_kernel_results[("bwd",) + fp32]))
+                res_launches, "fwd_res"),
+               ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches, "bwd"))
+    # each kernel's numbers at the main path's training batch (B=32, fp32)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"vae_teb_tpu_torch/kernels/{src}",
-        "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
-        "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, src, line, n, (err, ms, plain_ms) in entries]}))
+    rows = []
+    for name, src, line, n, key in entries:
+        err, ms, plain_ms, library_ms, (bound_ms, bound_by) = kernels[
+            (key,) + case]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"vae_teb_tpu_torch/kernels/{src}",
+            "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
+            "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -377,9 +377,29 @@ def test_train_step_uses_the_generator():
     for _ in range(2):
         model = SeqVaeTeb(**SMALL, seq_len=S)
         model.load_state_dict(ref.state_dict())
-        trainer = Trainer(model, TrainerConfig(seed=7))
+        trainer = Trainer(model, TrainerConfig(seed=7), device="cpu")
         m = trainer.train_step(_batch(40), 1e-5)
         runs.append((m["total_loss"].item(),
                      [p.detach().clone() for p in model.parameters()]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Trainer and InferenceServer run on the CUDA card unless the caller
+    names another device: without a card the default raises (nothing
+    falls back to the CPU), and device="cpu" runs on the CPU."""
+    from vae_teb_tpu_torch import InferenceServer, PhaseScattering1D
+    from vae_teb_tpu_torch.device import resolve_device
+    model = SeqVaeTeb(**SMALL, seq_len=S)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, TrainerConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceServer(model, PhaseScattering1D(6, 2, 8, 1024))
+    trainer = Trainer(model, TrainerConfig(), device="cpu")
+    assert trainer.device == torch.device("cpu")
+    assert all(p.device.type == "cpu" for p in trainer.model.parameters())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

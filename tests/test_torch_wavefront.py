@@ -17,6 +17,9 @@ from vae_teb_tpu_torch.kernels import (WavefrontFunction, wavefront_bwd,
                                        wavefront_bwd_plain, wavefront_fwd,
                                        wavefront_fwd_plain,
                                        wavefront_recurrence)
+from vae_teb_tpu_torch.kernels.wavefront import (_block_index, _bwd_layout,
+                                                 _fwd_layout, _launch_plan,
+                                                 unit_blocks)
 from vae_teb_tpu_torch.models.blocks import (LSTMStream, _wavefront_meta,
                                              _wavefront_pack, _wavefront_xs,
                                              run_lstm_streams)
@@ -90,15 +93,36 @@ def test_pack_and_xs_match_jax():
         np.asarray(jb._wavefront_xs(ops_j, H_, depths, offsets, U, K, S)))
 
 
+def _lvec(depths):
+    return np.concatenate([np.arange(d) for d in depths]).astype(np.int32)
+
+
+def _block_mask(depths, h):
+    """(UH, 4UH) 0/1 mask of the blocks `_wavefront_pack` fills: each unit's
+    recurrent block and, for a unit of layer >= 1, its feed block from the
+    unit below."""
+    lvec = _lvec(depths)
+    U = len(lvec)
+    mask = np.zeros((U, h, 4, U, h), np.float32)
+    for u in range(U):
+        mask[u, :, :, u] = 1
+        if lvec[u] > 0:
+            mask[u - 1, :, :, u] = 1
+    return mask.reshape(U * h, 4 * U * h)
+
+
 def _recurrence_inputs(seed, b, s, h, depths, dtype=torch.float32,
                        device="cpu"):
-    """Random wavefront operands: W_eff, b, xs_wave, h0, c0, lvec."""
+    """Random wavefront operands: W_eff, b, xs_wave, h0, c0, lvec. W_eff is
+    masked to the packed block structure, the only entries the kernels
+    read, so kernel and plain version compute the same function."""
     r = np.random.default_rng(seed)
     U = sum(depths)
     UH, K = U * h, s + max(depths) - 1
-    lvec = np.concatenate([np.arange(d) for d in depths]).astype(np.int32)
+    lvec = _lvec(depths)
     t = lambda a: torch.as_tensor(a.astype(np.float32), device=device).to(dtype)
-    return (t(r.standard_normal((UH, 4 * UH)) / np.sqrt(UH)),
+    return (t(r.standard_normal((UH, 4 * UH)) * _block_mask(depths, h)
+              / np.sqrt(2 * h)),
             t(r.standard_normal(4 * UH) * 0.1),
             t(r.standard_normal((K, b, 4 * UH))),
             t(r.standard_normal((b, UH)) * 0.2),
@@ -298,6 +322,165 @@ def test_bwd_dispatch_by_device():
         wavefront_bwd(*[a.to("meta") for a in bargs], S)
 
 
+PACK_DEPTHS = [(4, 4), (4, 2), (1, 3)]
+
+
+@pytest.mark.parametrize("depths", PACK_DEPTHS)
+def test_unit_blocks_rebuild_the_packed_weight(depths):
+    """The blocks the kernels keep resident, put back into a zero W_eff,
+    reproduce `_wavefront_pack`'s W_eff exactly: from the forward's Wf
+    (recurrent over feed-in block) and from the backward's Wb (row block:
+    recurrent beside feed-out block). The plain forward and backward on the
+    rebuilt W_eff then equal those on the packed one."""
+    arrays = [_stream_arrays(20 + i, d) for i, d in enumerate(depths)]
+    ops = _operands(_streams(LSTMStream, torch.as_tensor, arrays))
+    H_, depths_, offsets, U, D, lvec = _wavefront_meta(ops)
+    W, b = _wavefront_pack(ops, H_, depths_, offsets, U)
+    lvec = torch.as_tensor(lvec)
+    wf, wb = unit_blocks(W, lvec)
+    assert wf.shape == (U, 2 * H, 4 * H) and wb.shape == (U, H, 8 * H)
+    from_f = torch.zeros(U, H, 4, U, H)
+    from_b = torch.zeros(U, H, 4, U, H)
+    for u in range(U):
+        from_f[u, :, :, u] = wf[u, :H].view(H, 4, H)
+        from_b[u, :, :, u] = wb[u, :, :4 * H].view(H, 4, H)
+        if lvec[u] > 0:
+            from_f[u - 1, :, :, u] = wf[u, H:].view(H, 4, H)
+        else:
+            assert not wf[u, H:].any()
+        if u + 1 < U and lvec[u + 1] > 0:
+            from_b[u, :, :, u + 1] = wb[u, :, 4 * H:].view(H, 4, H)
+        else:
+            assert not wb[u, :, 4 * H:].any()
+    for rebuilt in (from_f, from_b):
+        assert torch.equal(rebuilt.view(W.shape), W)
+    K = S + D - 1
+    xs = _wavefront_xs(ops, H_, depths_, offsets, U, K, S)
+    h0 = torch.cat([h for op in ops for h in op["init_h"]], -1)
+    c0 = torch.cat([c for op in ops for c in op["init_c"]], -1)
+    fwd = lambda w: wavefront_fwd_plain(w, b, xs, h0, c0, lvec, S,
+                                        with_residuals=True)
+    for got, want in zip(fwd(from_f.view(W.shape)), fwd(W)):
+        assert torch.equal(got, want)
+    bargs = _bwd_inputs(21, (W, b, xs, h0, c0, lvec), S)
+    for got, want in zip(wavefront_bwd_plain(from_b.view(W.shape), *bargs[1:], S),
+                         wavefront_bwd_plain(*bargs, S)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depths", PACK_DEPTHS)
+def test_unit_blocks_give_the_step_products(depths):
+    """What each CTA computes from its resident blocks equals the dense
+    step products on structured input (fp32, 1e-6 / 1e-5: only the sum's
+    order differs): the forward's gates of unit u from [h_u | h_{u-1}] @
+    Wf[u], and the reverse wavefront's dz of unit u from [dgates_u |
+    dgates_{u+1}] @ Wb[u]^T."""
+    W, _, _, _, _, lvec = _recurrence_inputs(22, B, S, H, depths)
+    U = len(lvec)
+    wf, wb = unit_blocks(W, lvec)
+    r = np.random.default_rng(23)
+    h = torch.as_tensor(r.standard_normal((B, U, H)).astype(np.float32))
+    dg = torch.as_tensor(r.standard_normal((B, 4, U, H)).astype(np.float32))
+    gates = (h.reshape(B, -1) @ W).view(B, 4, U, H)
+    dz = (dg.reshape(B, -1) @ W.t()).view(B, U, H)
+    for u in range(U):
+        below = h[:, u - 1] if u else torch.zeros(B, H)
+        got = (torch.cat([h[:, u], below], 1) @ wf[u]).view(B, 4, H)
+        np.testing.assert_allclose(got.numpy(), gates[:, :, u].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        above = dg[:, :, u + 1] if u + 1 < U else torch.zeros(B, 4, H)
+        got = torch.cat([dg[:, :, u].reshape(B, -1), above.reshape(B, -1)],
+                        1) @ wb[u].t()
+        np.testing.assert_allclose(got.numpy(), dz[:, u].numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_kernel_weight_layouts():
+    """The shared-memory layouts the kernels index: wavefront_fwd.cu's
+    thread t reads Wf[u][4 d4 + e, q H + t] at ((d4 4 + e) H + t) 4 + q,
+    and wavefront_bwd.cu reads Wb[u][t, d] at d H + t."""
+    U, H_ = 3, 8
+    wf = torch.arange(U * 2 * H_ * 4 * H_, dtype=torch.float32).view(
+        U, 2 * H_, 4 * H_)
+    wb = torch.arange(U * H_ * 8 * H_, dtype=torch.float32).view(U, H_, 8 * H_)
+    kf = _fwd_layout(wf).view(U, -1)
+    kb = _bwd_layout(wb).view(U, -1)
+    for u in range(U):
+        for t in range(H_):
+            for d in range(2 * H_):
+                for q in range(4):
+                    assert kf[u, ((d // 4 * 4 + d % 4) * H_ + t) * 4 + q] == \
+                        wf[u, d, q * H_ + t]
+            for d in range(8 * H_):
+                assert kb[u, d * H_ + t] == wb[u, t, d]
+
+
+@pytest.mark.parametrize("depths", PACK_DEPTHS)
+def test_block_index_gathers_the_kernel_layouts(depths):
+    """The one gather the CUDA wrappers make per call, W_eff.view(-1)[idx],
+    gives `_fwd_layout(Wf)` and `_bwd_layout(Wb)` wherever the kernels
+    read: a unit's whole slab when it has a feed block (forward: lvec[u] >
+    0; backward: lvec[u+1] > 0), its first half (the recurrent block)
+    otherwise."""
+    W, _, _, _, _, lvec = _recurrence_inputs(24, B, S, H, depths)
+    U = len(lvec)
+    idx_f, idx_b = _block_index(U, H, W.device)
+    wf, wb = unit_blocks(W, lvec)
+    for idx, want, fed in ((idx_f, _fwd_layout(wf), lvec > 0),
+                           (idx_b, _bwd_layout(wb),
+                            torch.cat([lvec[1:] > 0, torch.zeros(1, dtype=bool)]))):
+        got = W.view(-1)[idx].view(U, -1)
+        want = want.view(U, -1)
+        n = want.shape[1] // 2
+        for u in range(U):
+            cols = slice(None) if fed[u] else slice(0, n)
+            assert torch.equal(got[u, cols], want[u, cols])
+
+
+@pytest.mark.parametrize("b,rows,clusters", [(1, 1, 1), (8, 1, 8),
+                                             (32, 2, 16), (128, 8, 16)])
+def test_launch_plan(b, rows, clusters):
+    """Rows per cluster: the fewest with which the ceil(B/M) clusters of
+    U=8 CTAs are resident at once, by default one CTA per SM of 132 (16
+    clusters); a card that holds 15 (the H100's cluster residency, which
+    the wrappers ask the card for) takes M = 3 at B=32 and 9 at B=128. The
+    shared memory mirrors the kernels' layout (fp32, H=64: 128 KB of
+    weights plus the buffers)."""
+    plan = _launch_plan(b, 8, 64, torch.float32)
+    assert (plan.rows, plan.clusters) == (rows, clusters)
+    base = 16 + 8 * 64 * 64 * 4      # two mbarriers, the weights
+    assert plan.fwd_smem == base + rows * (2 * 128 * 4 + 2 * 256 * 4
+                                           + 16 * 64 * 4)
+    assert plan.bwd_smem == base + rows * (2 * 512 * 4 + 7 * 64 * 4
+                                           + 16 * 64 * 4)
+    held15 = _launch_plan(b, 8, 64, torch.float32, lambda *a: 15)
+    assert held15.rows == {1: 1, 8: 1, 32: 3, 128: 9}[b]
+    assert held15.clusters <= 15 and held15.bwd_smem <= 232448
+    bf16 = _launch_plan(b, 8, 64, torch.bfloat16)
+    assert bf16.rows == rows and bf16.fwd_smem < plan.fwd_smem
+    # no M fits at once: the largest the shared memory takes, in waves
+    waves = _launch_plan(4096, 8, 64, torch.float32)
+    assert waves.rows == 10 and waves.bwd_smem <= 232448
+
+
+def test_launch_plan_refuses():
+    """What the kernels do not take: more units than a portable cluster
+    (8), a hidden size that is not a multiple of 8, shared memory over 227
+    KB (H=128 fp32: 512 KB of weights), or more than the 256 threads a CTA
+    the kernels are built for (H=72: 288)."""
+    _launch_plan(32, 6, 8, torch.float32)          # the tests' shape
+    with pytest.raises(ValueError, match="units"):
+        _launch_plan(32, 9, 64, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _launch_plan(32, 8, 12, torch.float32)
+    with pytest.raises(ValueError, match="shared"):
+        _launch_plan(32, 8, 128, torch.float32)
+    with pytest.raises(ValueError, match="threads"):
+        _launch_plan(32, 8, 72, torch.float32)
+    with pytest.raises(TypeError):
+        _launch_plan(32, 8, 64, torch.float64)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -306,12 +489,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (depths, H, B, S): the main path's shape at B = 32, 128 and 1 (rows per
+# cluster 2, 8, 1), ragged cluster groups, and a narrow 4+2-layer stack
+CUDA_CASES = [((4, 4), 64, 32, 300), ((4, 4), 64, 128, 300),
+              ((4, 4), 64, 1, 300), ((4, 2), 64, 5, 40), ((4, 2), 8, 3, 17)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("depths,h,b,s", [((4, 4), 64, 32, 300),
-                                          ((4, 2), 64, 5, 40),
-                                          ((4, 2), 8, 3, 17)])
+@pytest.mark.parametrize("depths,h,b,s", CUDA_CASES)
 def test_kernel_matches_plain(cuda_device, dtype, tol, depths, h, b, s):
     """The CUDA kernel against its plain version on the card: max-abs 1e-5
     in fp32, 1.6e-2 (two bf16 ulps at 1.0) in bf16 storage."""
@@ -326,14 +513,10 @@ def test_kernel_matches_plain(cuda_device, dtype, tol, depths, h, b, s):
         assert (g.float() - w.float()).abs().max().item() <= tol
 
 
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("depths,h,b,s", [((4, 4), 64, 32, 300),
-                                          ((4, 2), 64, 5, 40),
-                                          ((4, 2), 8, 3, 17)])
+@pytest.mark.parametrize("depths,h,b,s", CUDA_CASES)
 def test_residual_kernel_matches_plain(cuda_device, dtype, tol, depths, h, b,
                                        s):
     """The residual forward kernel against its plain version, all five
@@ -357,9 +540,7 @@ def test_residual_kernel_matches_plain(cuda_device, dtype, tol, depths, h, b,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("depths,h,b,s", [((4, 4), 64, 32, 300),
-                                          ((4, 2), 64, 5, 40),
-                                          ((4, 2), 8, 3, 17)])
+@pytest.mark.parametrize("depths,h,b,s", CUDA_CASES)
 def test_bwd_kernel_matches_plain(cuda_device, dtype, tol, depths, h, b, s):
     """The reverse-wavefront kernel against its plain version on the same
     residuals: dgates_seq, dh_fin and dc_fin within tol * max|plain| (fp32

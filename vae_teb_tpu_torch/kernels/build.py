@@ -2,8 +2,9 @@
 
 Each `.cu` file under this directory exposes a plain C interface and is
 compiled on first use into `_build/` (listed in .gitignore) as a shared
-library named after a hash of its source and flags, so an edited source is
-never served from a stale build. Compiling a plain C file takes seconds;
+library named after a hash of its source, the `.cuh` headers beside it and
+the flags, so an edited source or header is never served from a stale
+build. Compiling a plain C file takes seconds;
 PyTorch's extension builder would compile PyTorch's headers for minutes and
 needs ninja. A failed build raises; nothing falls back.
 """
@@ -24,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}   # source name -> nvcc output (ptxas usage)
+build_logs: Dict[str, str] = {}   # source name -> nvcc output (ptxas usage),
+                                  # kept beside each library as <lib>.log
 
 
 def _nvcc() -> str:
@@ -42,11 +44,19 @@ def load(source: str) -> ctypes.CDLL:
     if source in _loaded:
         return _loaded[source]
     src_path = os.path.join(KERNEL_DIR, source)
-    with open(src_path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header beside it, which a source may include
+    for name in [source] + sorted(n for n in os.listdir(KERNEL_DIR)
+                                  if n.endswith(".cuh")):
+        with open(os.path.join(KERNEL_DIR, name), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    log_path = lib_path + ".log"
+    if os.path.exists(lib_path) and os.path.exists(log_path):
+        with open(log_path) as f:
+            build_logs[source] = f.read()
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         # build to a temporary name, then rename: concurrent builders never
@@ -61,6 +71,8 @@ def load(source: str) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed on {source} "
                                    f"(exit {proc.returncode}):\n"
                                    f"{build_logs[source]}")
+            with open(log_path, "w") as f:
+                f.write(build_logs[source])
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):

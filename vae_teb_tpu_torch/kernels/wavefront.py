@@ -8,6 +8,10 @@ anything else raises. Each kernel launch adds one to its wrapper's count:
 (training forward, which also stores the residuals) and
 `wavefront_bwd.launches`.
 
+The kernels run one thread-block cluster of U CTAs (one per unit) per
+group of M batch rows, each CTA holding its unit's weight blocks in shared
+memory for all K steps (`unit_blocks`, `_launch_plan`).
+
 `wavefront_recurrence` is the differentiable recurrence the model calls:
 the forward alone when no gradient is wanted, otherwise
 `WavefrontFunction`, whose backward runs the reverse wavefront and forms
@@ -18,7 +22,7 @@ the weight gradients outside the recurrence, as the JAX package's custom VJP doe
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,20 +30,190 @@ from . import build
 from .wavefront_ref import wavefront_bwd_plain, wavefront_fwd_plain
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_MAX_UH = 1024   # one thread per state column, one block per batch row
+_MAX_UNITS = 8           # the portable cluster size: one CTA per unit
+_MAX_THREADS = 256       # 4H threads a CTA; the kernels are built for 256
+_SMEM_LIMIT = 232448     # 227 KB of shared memory per block on Hopper
+_SMS = 132               # H100 SXM
+_MAX_ROWS = 10           # batch rows per cluster the kernels are built for
 
 
-def _kernel(source: str, entry: str, n_ptr: int):
-    fn = getattr(build.load(source), entry)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+class LaunchPlan(NamedTuple):
+    rows: int        # M, batch rows per cluster
+    clusters: int    # ceil(B / M), each of U CTAs
+    fwd_smem: int    # dynamic shared memory of a forward CTA, bytes
+    bwd_smem: int    # ... of a reverse-wavefront CTA
+
+
+def _smem(M: int, H: int, item: int) -> Tuple[int, int]:
+    """Shared memory of a forward and a reverse-wavefront CTA, as the
+    kernels lay it out: two mbarriers and the unit's 8H^2 weights in the
+    storage type; then h (fp32) and the prefetched xs rows, each
+    double-buffered, and the four depth slices' partial gates (forward);
+    or the dgates (fp32, double-buffered), one step's prefetched residual
+    rows (7 of H) and the 16 depth slices' partial dz (backward)."""
+    base = 16 + 8 * H * H * item          # two mbarriers, the weights
+    fwd = base + 2 * M * 2 * H * 4 + 2 * M * 4 * H * item + 16 * M * H * 4
+    bwd = base + 2 * M * 8 * H * 4 + M * 7 * H * item + 16 * M * H * 4
+    return fwd, bwd
+
+
+def _launch_plan(B: int, U: int, H: int, dtype: torch.dtype,
+                 resident: Optional[Callable[[int, int, int], int]] = None
+                 ) -> LaunchPlan:
+    """How the kernels split a batch of B rows over U units of width H.
+
+    M is the fewest rows per cluster with which all ceil(B/M) clusters are
+    resident at once; `resident(M, fwd_smem, bwd_smem)` says how many
+    clusters of U CTAs the card holds (the CUDA wrappers ask the card,
+    cudaOccupancyMaxActiveClusters); by default one CTA per SM of 132. When
+    no M up to 10 fits, the largest that the shared memory takes runs the
+    clusters in waves. Raises on what the kernels do not take: more than 8
+    units, H not a multiple of 8 (16-byte copies of a unit's row segment),
+    shared memory over 227 KB, or 4H over the 256 threads a CTA the
+    kernels are built for (so that a thread may hold up to 255 registers).
+    """
+    if dtype not in _DTYPES:
+        raise TypeError(f"the wavefront kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    if not 1 <= U <= _MAX_UNITS:
+        raise ValueError(f"{U} units: a cluster holds one CTA per unit, at "
+                         f"most {_MAX_UNITS}")
+    if H < 8 or H % 8:
+        raise ValueError(f"hidden size {H}: the kernels need a multiple of 8")
+    if B < 1:
+        raise ValueError(f"bad batch {B}")
+    item = torch.empty((), dtype=dtype).element_size()
+    if max(_smem(1, H, item)) > _SMEM_LIMIT:
+        raise ValueError(f"H={H} {dtype} needs {max(_smem(1, H, item))} bytes "
+                         f"of shared memory per CTA, over {_SMEM_LIMIT}")
+    if 4 * H > _MAX_THREADS:
+        raise ValueError(f"hidden size {H}: 4H = {4 * H} threads a CTA, over "
+                         f"the {_MAX_THREADS} the kernels are built for")
+    plan = None
+    for M in range(1, _MAX_ROWS + 1):
+        fwd, bwd = _smem(M, H, item)
+        if max(fwd, bwd) > _SMEM_LIMIT:
+            break
+        plan = LaunchPlan(M, -(-B // M), fwd, bwd)
+        held = resident(M, fwd, bwd) if resident else _SMS // U
+        if plan.clusters <= held:
+            break
+    return plan
+
+
+_held: Dict[tuple, int] = {}
+
+
+def _card_resident(device: torch.device, dtype: torch.dtype, U: int, H: int
+                   ) -> Callable[[int, int, int], int]:
+    """`resident` for `_launch_plan` on a card: the clusters of U CTAs that
+    both kernels can hold at once at M rows (cudaOccupancyMaxActiveClusters),
+    asked once per shape."""
+    def held(M: int, fwd_smem: int, bwd_smem: int) -> int:
+        key = (device, dtype, U, H, M)
+        if key not in _held:
+            with torch.cuda.device(device):
+                n = min(_max_clusters(kind)(int(dtype == torch.bfloat16), M,
+                                            U, H, M, smem)
+                        for kind, smem in (("fwd", fwd_smem),
+                                           ("bwd", bwd_smem)))
+            if n < 1:
+                raise RuntimeError(f"the card holds no cluster of {U} CTAs "
+                                   f"with {max(fwd_smem, bwd_smem)} bytes of "
+                                   f"shared memory (CUDA error {-n})")
+            _held[key] = n
+        return _held[key]
+    return held
+
+
+def unit_blocks(W_eff: torch.Tensor, lvec: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-unit weight blocks the kernels keep resident.
+
+    W_eff (UH, 4UH) is block-bidiagonal as `_wavefront_pack` makes it; its
+    other entries are ignored. Viewed as (U, H, 4, U, H) = (row unit, row,
+    gate, column unit, column), block [v, :, :, u, :] maps unit v's h to
+    unit u's gates. Returns
+      Wf (U, 2H, 4H): unit u's recurrent block [u, :, :, u, :] over its
+        feed block [u-1, :, :, u, :] (zeros when lvec[u] == 0), the rows
+        the forward multiplies [h_u | h_{u-1}] with;
+      Wb (U, H, 8H): row block u of W_eff, the recurrent block beside the
+        feed block into unit u+1 [u, :, :, u+1, :] (zeros unless
+        lvec[u+1] > 0), the columns the reverse wavefront multiplies
+        [dgates_u | dgates_{u+1}] with.
+    Gate columns are gate-major within a unit (q * H + t).
+    """
+    U = lvec.numel()
+    H = W_eff.shape[0] // U
+    blk = W_eff.view(U, H, 4, U, H)
+    idx = torch.arange(U, device=W_eff.device)
+    own = blk[idx, :, :, idx]                                # (U, H, 4, H)
+    feed = torch.zeros_like(own)                             # into unit u
+    feed[1:] = blk[idx[:-1], :, :, idx[1:]]
+    feed = torch.where((lvec > 0).view(U, 1, 1, 1), feed, 0)
+    wf = torch.cat([own, feed], 1).reshape(U, 2 * H, 4 * H)
+    out = torch.cat([feed[1:], torch.zeros_like(feed[:1])])  # out of unit u
+    wb = torch.cat([own.reshape(U, H, 4 * H), out.reshape(U, H, 4 * H)], 2)
+    return wf, wb
+
+
+_indices: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _block_index(U: int, H: int, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat indices into W_eff of what the kernels keep resident, (U * 8H^2,)
+    each: `_fwd_layout` of Wf and `_bwd_layout` of Wb, so that one gather
+    per call forms them. Built once per shape by running `unit_blocks` on
+    the indices themselves. Every feed half points at the neighbouring
+    unit's block whatever lvec says (index 0 where there is no neighbour):
+    a kernel reads a unit's feed half only when lvec gives it one."""
+    key = (U, H, device)
+    if key not in _indices:
+        UH = U * H
+        ar = torch.arange(UH * 4 * UH, device=device).view(UH, 4 * UH)
+        wf, wb = unit_blocks(ar, torch.ones(U, dtype=torch.int32,
+                                            device=device))
+        _indices[key] = (_fwd_layout(wf).view(-1), _bwd_layout(wb).view(-1))
+    return _indices[key]
+
+
+def _fwd_layout(wf: torch.Tensor) -> torch.Tensor:
+    """Wf (U, 2H, 4H) as wavefront_fwd.cu keeps it in shared memory,
+    [U][2H/4][4][H][4] = (unit, d4, e, state column t, gate q) for depth
+    4 d4 + e: thread t reads the four gates of one depth as one 16-byte
+    word at offset ((d4 * 4 + e) * H + t) * 4."""
+    U, D, G = wf.shape
+    return wf.view(U, D // 4, 4, 4, G // 4).permute(0, 1, 2, 4, 3).contiguous()
+
+
+def _bwd_layout(wb: torch.Tensor) -> torch.Tensor:
+    """Wb (U, H, 8H) as wavefront_bwd.cu keeps it in shared memory,
+    [U][8H][H] = (unit, depth, state column): a thread reads four
+    neighbouring columns of one depth as one 16-byte word."""
+    return wb.transpose(1, 2).contiguous()
+
+
+def _max_clusters(kind: str):
+    """wavefront_{kind}_max_clusters(bf16, B, U, H, M, smem) -> int."""
+    fn = build.load(f"wavefront_{kind}.cu")[f"wavefront_{kind}_max_clusters"]
+    fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(name: str, tensors, lvec: torch.Tensor, seq: torch.Tensor) -> None:
+def _kernel(source: str, entry: str, n_ptr: int):
+    fn = getattr(build.load(source), entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, tensors, lvec: torch.Tensor, seq: torch.Tensor
+           ) -> LaunchPlan:
     """The CUDA wrappers' input contract: one storage dtype (float32 or
     bfloat16), an int32 lvec, one device, contiguous, a packed width 4UH
-    that the units divide."""
+    that the units divide, and a shape `_launch_plan` takes."""
     dtype = seq.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {dtype}")
@@ -52,11 +226,13 @@ def _check(name: str, tensors, lvec: torch.Tensor, seq: torch.Tensor) -> None:
         raise ValueError(f"{name} needs contiguous inputs")
     K, B, G = seq.shape
     UH, U = G // 4, lvec.numel()
-    if G != 4 * UH or UH % U or not 0 < UH <= _MAX_UH:
-        raise ValueError(f"{name}: bad packed width 4*UH={G} for {U} units "
-                         f"(UH at most {_MAX_UH})")
+    if G != 4 * UH or U < 1 or UH % U:
+        raise ValueError(f"{name}: bad packed width 4*UH={G} for {U} units")
     if not 0 < B < 2 ** 31 or K < 1:
         raise ValueError(f"{name}: bad batch {B} or step count {K}")
+    H = UH // U
+    return _launch_plan(B, U, H, dtype,
+                        _card_resident(seq.device, dtype, U, H))
 
 
 def _device_type(name: str, x: torch.Tensor) -> str:
@@ -74,13 +250,16 @@ def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
 
     Arguments as in `wavefront_fwd_plain`. On CUDA all tensors must be
     contiguous, on one device, of one storage dtype (float32 or bfloat16),
-    with lvec int32. Records no autograd graph (see `wavefront_recurrence`).
+    with lvec int32, and the kernel reads only the blocks of W_eff that
+    `_wavefront_pack` fills (`unit_blocks`): W_eff must be block-bidiagonal
+    as that function makes it, and its other entries are ignored. Records
+    no autograd graph (see `wavefront_recurrence`).
     """
     if _device_type("wavefront_fwd", xs_wave) == "cpu":
         return wavefront_fwd_plain(W_eff, b_packed, xs_wave, h0, c0, lvec, S,
                                    with_residuals)
     tensors = (W_eff, b_packed, xs_wave, h0, c0)
-    _check("wavefront_fwd", tensors, lvec, xs_wave)
+    plan = _check("wavefront_fwd", tensors, lvec, xs_wave)
     K, B, G = xs_wave.shape
     UH = G // 4
     if (W_eff.shape != (UH, G) or b_packed.shape != (G,)
@@ -88,9 +267,12 @@ def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
         raise ValueError("wavefront_fwd: W_eff, b_packed, h0 or c0 does not "
                          f"match xs_wave {tuple(xs_wave.shape)}")
     dtype, device = xs_wave.dtype, xs_wave.device
+    U = lvec.numel()
+    H = UH // U
+    wf = W_eff.view(-1)[_block_index(U, H, device)[0]]
     new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     h_seq, h_fin, c_fin = new(K, B, UH), new(B, UH), new(B, UH)
-    ptrs = [x.data_ptr() for x in tensors + (lvec, h_seq)]
+    ptrs = [x.data_ptr() for x in (wf,) + tensors[1:] + (lvec, h_seq)]
     if with_residuals:
         gates_seq, c_seq = new(K, B, G), new(K, B, UH)
         ptrs += [gates_seq.data_ptr(), c_seq.data_ptr()]
@@ -100,7 +282,7 @@ def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
     ptrs += [h_fin.data_ptr(), c_fin.data_ptr()]
     with torch.cuda.device(device):
         err = _kernel("wavefront_fwd.cu", entry, len(ptrs))(
-            *ptrs, K, B, UH, UH // lvec.numel(), S,
+            *ptrs, K, B, U, H, S, plan.rows, plan.fwd_smem,
             torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
@@ -123,14 +305,14 @@ def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
     """Reverse wavefront: (dgates_seq (K, B, 4UH), dh_fin, dc_fin (B, UH)).
 
     Arguments as in `wavefront_bwd_plain`; on CUDA the same contract as
-    `wavefront_fwd`. The kernel reads W_eff transposed, (4UH, UH)
-    contiguous, which this wrapper forms.
+    `wavefront_fwd`, W_eff's block structure included: the kernel reads
+    only the row blocks `unit_blocks` returns as Wb.
     """
     if _device_type("wavefront_bwd", gates_seq) == "cpu":
         return wavefront_bwd_plain(W_eff, gates_seq, c_seq, c_prev_seq, dY,
                                    dh0, dc0, lvec, S)
     tensors = (W_eff, gates_seq, c_seq, c_prev_seq, dY, dh0, dc0)
-    _check("wavefront_bwd", tensors, lvec, gates_seq)
+    plan = _check("wavefront_bwd", tensors, lvec, gates_seq)
     K, B, G = gates_seq.shape
     UH = G // 4
     if (W_eff.shape != (UH, G) or dh0.shape != (B, UH) or dc0.shape != (B, UH)
@@ -138,16 +320,18 @@ def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
         raise ValueError("wavefront_bwd: W_eff, c_seq, c_prev_seq, dY, dh0 or "
                          f"dc0 does not match gates_seq {tuple(gates_seq.shape)}")
     dtype, device = gates_seq.dtype, gates_seq.device
-    wt = W_eff.t().contiguous()
+    U = lvec.numel()
+    H = UH // U
+    wb = W_eff.view(-1)[_block_index(U, H, device)[1]]
     dgates_seq = torch.empty((K, B, G), dtype=dtype, device=device)
     dh_fin = torch.empty((B, UH), dtype=dtype, device=device)
     dc_fin = torch.empty((B, UH), dtype=dtype, device=device)
     entry = f"wavefront_bwd_{_DTYPES[dtype]}"
-    ptrs = [x.data_ptr() for x in (wt,) + tensors[1:] + (lvec, dgates_seq,
+    ptrs = [x.data_ptr() for x in (wb,) + tensors[1:] + (lvec, dgates_seq,
                                                         dh_fin, dc_fin)]
     with torch.cuda.device(device):
         err = _kernel("wavefront_bwd.cu", entry, len(ptrs))(
-            *ptrs, K, B, UH, UH // lvec.numel(), S,
+            *ptrs, K, B, U, H, S, plan.rows, plan.bwd_smem,
             torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")

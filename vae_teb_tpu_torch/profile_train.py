@@ -1,4 +1,5 @@
-"""Where the time of a training step goes on the card.
+"""Where the time of a training step, and of a serving request, goes on
+the card.
 
     python -m vae_teb_tpu_torch.profile_train     # one CUDA device
 
@@ -18,7 +19,17 @@ windows through the production frontend measures:
   idle share    1 - device busy time per step / step time
 
 and prints one JSON line per batch size (also written to
-chiprun_out/profile_train.json when that directory exists).
+chiprun_out/profile_train.json when that directory exists). Then, for a
+serving request (`InferenceServer.infer`, eval mode) at B = 1, 8 and 32:
+
+  request       host clock around infer, synchronized (median of 5)
+  frontend      CUDA events around the frontend (median of 5)
+  forward       CUDA events around the deterministic forward
+  wavefront kernel and the device's busy time per request: from a
+                torch.profiler window of 3 requests
+  idle share    1 - device busy time per request / request time
+
+one JSON line per batch size (chiprun_out/profile_serve.json).
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import time
 import torch
 
 BATCHES = (32, 128)
+SERVE_BATCHES = (1, 8, 32)
 RUNS = 5
 N = 5760
 
@@ -78,6 +90,50 @@ def _top(prof, n: int = 12) -> list:
              getattr(e, "device_time_total", 0.0) / 1e3)
             for e in prof.key_averages()]
     return sorted(rows, key=lambda r: -r[2])[:n]
+
+
+def _serve_rows(model, frontend_ops, device, smi) -> list:
+    """The serving breakdown at each of SERVE_BATCHES."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import InferenceServer
+    server = InferenceServer(model, frontend_ops, device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows = []
+    for b in SERVE_BATCHES:
+        x = torch.randn((2, b, N), generator=gen, device=device)
+        for _ in range(2):
+            server.infer(x[0], x[1])
+        lat = []
+        for _ in range(RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.infer(x[0], x[1])
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        request_ms = statistics.median(lat)
+        coeffs = server.coefficients(x[0], x[1])
+        frontend_ms = cuda_ms(lambda: server.coefficients(x[0], x[1]))
+        forward_ms = cuda_ms(lambda: server.infer_coefficients(*coeffs))
+        n_prof = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                server.infer(x[0], x[1])
+            torch.cuda.synchronize()
+        kernels = _kernels(prof)
+        busy_ms = _busy_us(kernels) / 1e3 / n_prof
+        row = {"batch": b, "request_ms": request_ms,
+               "frontend_ms": frontend_ms, "forward_ms": forward_ms,
+               "wavefront_fwd_kernel_ms": sum(
+                   e.time_range.elapsed_us() for e in kernels
+                   if "wavefront_fwd_kernel" in e.name) / 1e3 / n_prof,
+               "device_busy_ms": busy_ms,
+               "device_kernels_per_request": len(kernels) / n_prof,
+               "idle_share": 1 - busy_ms / request_ms, "card": smi}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
 
 
 def main() -> int:
@@ -161,9 +217,12 @@ def main() -> int:
                "step_top_host_ops": _top(prof), "card": smi}
         rows.append(row)
         print(json.dumps(row), flush=True)
+    serve_rows = _serve_rows(model, frontend.frontend, device, smi)
     if os.path.isdir("chiprun_out"):
-        with open(os.path.join("chiprun_out", "profile_train.json"), "w") as f:
-            json.dump(rows, f, indent=1)
+        for name, out in (("profile_train", rows), ("profile_serve",
+                                                    serve_rows)):
+            with open(os.path.join("chiprun_out", f"{name}.json"), "w") as f:
+                json.dump(out, f, indent=1)
     return 0
 
 

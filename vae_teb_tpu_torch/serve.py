@@ -5,7 +5,8 @@ the phase-scattering frontend (scattering, phase and cross-phase families,
 reduced rate) on the production selections, then TRIM steps (2 minutes)
 trimmed from each end. The training step takes the same coefficients.
 
-`InferenceServer` holds a model and a `WindowFrontend` on one device.
+`InferenceServer` holds a model and a `WindowFrontend` on one device, the
+CUDA card unless the caller names another.
 `infer(fhr, up)` runs the whole serving path -> the deterministic forward
 (posterior mean latent). `infer_coefficients(y_st, y_ph, x_ph)` starts
 from precomputed coefficients, as the JAX package's `serve._inference_fn`
@@ -22,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .device import resolve_device
 from .models import SeqVaeTeb
 from .ops import PhaseScattering1D
 
@@ -51,9 +53,14 @@ class WindowFrontend:
 
 
 class InferenceServer:
+    """A model and its frontend on one device: the CUDA card unless
+    `device` names another (`device="cpu"`). The model moves there; the
+    frontend is built on its own device (`PhaseScattering1D(device=)`),
+    which should be the same."""
 
-    def __init__(self, model: SeqVaeTeb, frontend: PhaseScattering1D, device):
-        self.device = torch.device(device)
+    def __init__(self, model: SeqVaeTeb, frontend: PhaseScattering1D,
+                 device=None):
+        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.frontend = WindowFrontend(frontend)
 

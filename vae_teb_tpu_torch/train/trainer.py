@@ -20,6 +20,7 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from ..device import resolve_device
 from ..models.vae_teb import SeqVaeTeb, compute_loss
 from .schedules import beta_schedule, cosine_warm_restarts, make_optimizer
 
@@ -54,7 +55,8 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Train and eval steps for a SeqVaeTeb on one device.
+    """Train and eval steps for a SeqVaeTeb on one device: the CUDA card
+    unless `device` names another (`device="cpu"`); the model moves there.
 
     `train_step` and `eval_step` take a batch dict with the dataset's
     fields: fhr_st (B, S, 43), fhr_ph (B, S, 44), fhr_up_ph (B, S, 130) and
@@ -70,15 +72,15 @@ class Trainer:
                 "bf16)) is not ported yet: ROADMAP Queue 1, item 2")
         if config.precision not in ("fp32", "float32"):
             raise ValueError(f"unknown precision: {config.precision!r}")
+        moment_dtype = config.moment_torch_dtype()   # raises if unknown
         self.config = config
-        self.device = torch.device(device if device is not None else
-                                   next(model.parameters()).device)
+        self.device = resolve_device(device)
         self.model = model.to(self.device)
         lr = (cosine_warm_restarts(config.lr, config.lr_t0_steps)
               if config.lr_t0_steps > 0 else config.lr)
         self.optimizer = make_optimizer(
             self.model.parameters(), lr, config.grad_clip_norm,
-            config.weight_decay, moment_dtype=config.moment_torch_dtype())
+            config.weight_decay, moment_dtype=moment_dtype)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         # per-epoch KLD weight, as the JAX fit loop reads it
