@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and training step on an NVIDIA GPU.
+"""Drive the PyTorch port's serving path, training step and training entry
+point on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
@@ -39,12 +40,33 @@ Phases, each of which raises on failure (exit code 1):
      a falling B=32 loss, one residual-forward and one backward launch per
      step; then one B=8 step against the plain recurrence on the card and
      one B=2 step against the CPU on identical coefficients and noise;
-  6. print the card's nvidia-smi name and power limit, one JSON line for
-     the kernels, and last {"ok": true, "device": {...}}.
+  6. the bf16 compute policy's forward: full-width SeqVaeTeb(dtype=bf16)
+     on the same seeded weights against the fp32 model on the card (B=32,
+     eval mode, every output within 0.1 of its max) and against the CPU's
+     plain path at B=1; the bf16 forward launched wavefront_fwd_bf16 once;
+  7. bf16 training (TrainerConfig(precision="bf16", moment_dtype="bf16")):
+     phase 5's steps, each launching wavefront_fwd_res_bf16 and
+     wavefront_bwd_bf16 once, median step times beside phase 5's; then one
+     B=8 step: float32 gradients, held leaf by leaf against the plain
+     reverse wavefront on a shared forward; losses against the CPU, and
+     the gradients' distance from the CPU's against the CPU's own move
+     when the coefficients move by half a bf16 ulp;
+  8. fit through the training entry point (`cli.run_training`): seeded
+     windows through the frontend into two packed window stores (raw
+     layout), a RunConfig built in code (bf16, batch 32, accumulation 2,
+     prefetch 2, keep 2, device normalization), 3 epochs, then a resume
+     for a 4th; checks the history, the checkpoints kept, the restored
+     state bit for bit, the optimizer's count, and that prefetch handed
+     the steps tensors on the card;
+  9. print the card's nvidia-smi name and power limit, one JSON line for
+     the kernels (with their bf16 launches in each of phases 6, 7 and 8,
+     counted from 0 at that phase's start), and last
+     {"ok": true, "device": {...}}.
 """
 
 import json
 import statistics
+from collections import Counter
 import subprocess
 import sys
 import time
@@ -78,6 +100,24 @@ METRIC_REL_TOL = 1e-4  # card vs CPU losses and running statistics
 PARAM_FRAC_TOL = 1e-3  # card vs CPU: share of weights more than lr/100 apart
 PARAM_L2_TOL = 1e-1   # card vs CPU: rel-L2 of the parameter difference
 TRAIN_STEPS = ((32, 10), (128, 5))   # (batch, steps) on one fixed batch each
+# bf16 policy against fp32 on the card, of each output's max: the JAX
+# package's own bar (tests/test_train.py::test_bf16_policy_forward_close_to_fp32)
+BF16_FP32_REL_TOL = 0.1
+# bf16 policy, card against the CPU's plain path at B=1 (PERF.md gives the
+# measured value)
+BF16_CPU_REL_TOL = 0.1
+# bf16 train step (PERF.md gives the measured values). Kernels against the
+# plain reverse wavefront on a shared forward, per gradient leaf as
+# grad_report floors it, and model-wide:
+BF16_GRAD_REL_TOL, BF16_GRAD_L2_TOL = 1e-1, 1e-2
+# Card against the CPU on identical coefficients and noise: cuBLAS/cuDNN and
+# the CPU sum bf16 products in other orders, so a product at a rounding
+# boundary rounds a ulp apart, and the full-width model amplifies that ulp.
+BF16_METRIC_REL_TOL = 1e-2   # losses
+# The gradients' rel-L2, card against CPU, over the rel-L2 between the CPU
+# and the CPU on coefficients moved by half a bf16 ulp
+BF16_NUDGE_RATIO = 1.5
+FIT_WINDOWS = (128, 32)   # generated training / validation windows
 # Seed 0's final single-channel ReLU conv is dead on these inputs (the
 # decoder heads would see zeros and their check would be vacuous); seed 2's
 # is active.
@@ -511,6 +551,66 @@ def grad_report(got, want):
     return worst, leaf, (num / den) ** 0.5
 
 
+def train_loop(trainer, frontend, batch_of, fields, beta, label):
+    """TRAIN_STEPS: at each (B, steps), `steps` train steps on one fixed
+    batch of raw windows through the frontend on the card. Checks finite
+    metrics, a falling loss at the first B, and that every step launched
+    the residual forward and the reverse wavefront of the model's storage
+    type once each (`wavefront_fwd_res_{f32,bf16}`, `wavefront_bwd_...`)
+    and no other kernel entry. Returns (steps, {B: (median ms without the
+    frontend, with it)})."""
+    from vae_teb_tpu_torch.kernels import wavefront_bwd, wavefront_fwd
+    kind = "bf16" if trainer.model.dtype == torch.bfloat16 else "f32"
+    expect = {f"wavefront_fwd_res_{kind}": 1, f"wavefront_bwd_{kind}": 1}
+    device = trainer.device
+    steps, times = 0, {}
+    for b, n_steps in TRAIN_STEPS:
+        fhr, up, y_raw = batch_of(b)
+        torch.cuda.reset_peak_memory_stats(device)
+        totals, with_fe, without_fe = [], [], []
+        for step in range(n_steps):
+            before = (Counter(wavefront_fwd.entry_launches),
+                      Counter(wavefront_bwd.entry_launches))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coeffs = frontend(fhr, up)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = trainer.train_step(fields(coeffs, y_raw), beta)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            steps += 1
+            metrics = {k: v.item() for k, v in metrics.items()}
+            launched = dict((wavefront_fwd.entry_launches - before[0])
+                            + (wavefront_bwd.entry_launches - before[1]))
+            if launched != expect:
+                raise AssertionError(f"{label} step B={b} #{step}: kernel "
+                                     f"entries launched {launched}, "
+                                     f"expected {expect}")
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"{label} step B={b} #{step}: "
+                                     f"non-finite metrics {metrics}")
+            totals.append(metrics["total_loss"])
+            if step:                                   # step 0 warms up
+                with_fe.append(t2 - t0)
+                without_fe.append(t2 - t1)
+            log(f"{label} B={b} step {step}: " + ", ".join(
+                f"{k} {v!r}" for k, v in sorted(metrics.items())))
+        peak = torch.cuda.max_memory_allocated(device)
+        med_with, med_without = (statistics.median(with_fe),
+                                 statistics.median(without_fe))
+        times[b] = (med_without * 1e3, med_with * 1e3)
+        log(f"{label} B={b}: median step {med_without * 1e3!r} ms without "
+            f"the frontend, {med_with * 1e3!r} ms with it, over "
+            f"{n_steps - 1} steps after a warm-up; {b / med_with!r} "
+            f"windows/s with the frontend ({b / med_without!r} without); "
+            f"peak device memory {peak} bytes")
+        if b == TRAIN_STEPS[0][0] and not totals[-1] < totals[0]:
+            raise AssertionError(f"{label}: fixed-batch total_loss did not "
+                                 f"fall over {n_steps} steps: {totals}")
+    return steps, times
+
+
 def train(device):
     """The training phases; returns the main path's launch counts."""
     import copy
@@ -544,51 +644,8 @@ def train(device):
     wavefront_fwd.launches = 0
     wavefront_fwd.residual_launches = 0
     wavefront_bwd.launches = 0
-    steps = 0
-    for b, n_steps in TRAIN_STEPS:
-        fhr, up, y_raw = batch_of(b)
-        torch.cuda.reset_peak_memory_stats(device)
-        totals, with_fe, without_fe = [], [], []
-        for step in range(n_steps):
-            before = (wavefront_fwd.launches, wavefront_fwd.residual_launches,
-                      wavefront_bwd.launches)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            coeffs = frontend(fhr, up)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            metrics = trainer.train_step(fields(coeffs, y_raw), beta)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            steps += 1
-            metrics = {k: v.item() for k, v in metrics.items()}
-            launched = (wavefront_fwd.launches - before[0],
-                        wavefront_fwd.residual_launches - before[1],
-                        wavefront_bwd.launches - before[2])
-            if launched != (0, 1, 1):
-                raise AssertionError(f"train step B={b} #{step}: launches "
-                                     f"(serving fwd, residual fwd, bwd) "
-                                     f"{launched}, expected (0, 1, 1)")
-            if not all(np.isfinite(v) for v in metrics.values()):
-                raise AssertionError(f"train step B={b} #{step}: non-finite "
-                                     f"metrics {metrics}")
-            totals.append(metrics["total_loss"])
-            if step:                                   # step 0 warms up
-                with_fe.append(t2 - t0)
-                without_fe.append(t2 - t1)
-            log(f"train B={b} step {step}: " + ", ".join(
-                f"{k} {v!r}" for k, v in sorted(metrics.items())))
-        peak = torch.cuda.max_memory_allocated(device)
-        med_with, med_without = (statistics.median(with_fe),
-                                 statistics.median(without_fe))
-        log(f"train B={b}: median step {med_without * 1e3!r} ms without the "
-            f"frontend, {med_with * 1e3!r} ms with it, over {n_steps - 1} "
-            f"steps after a warm-up; {b / med_with!r} windows/s with the "
-            f"frontend ({b / med_without!r} without); peak device memory "
-            f"{peak} bytes")
-        if b == TRAIN_STEPS[0][0] and not totals[-1] < totals[0]:
-            raise AssertionError(f"fixed-batch total_loss did not fall over "
-                                 f"{n_steps} steps: {totals}")
+    steps, times = train_loop(trainer, frontend, batch_of, fields, beta,
+                              "train")
     counts = (wavefront_fwd.residual_launches, wavefront_bwd.launches)
     if counts != (steps, steps) or wavefront_fwd.launches:
         raise AssertionError(f"{steps} train steps launched the residual "
@@ -681,7 +738,366 @@ def train(device):
         f"update {p_l2!r}; running statistics max-abs/max {s_err!r}")
     if failed:
         raise AssertionError("training checks failed:\n" + "\n".join(failed))
-    return counts
+    return counts, times
+
+
+def bf16_forward(device):
+    """The bf16 compute policy's forward: full-width SeqVaeTeb(dtype=bf16)
+    on the smoke's seeded weights against the same weights in fp32 on the
+    card (eval mode, B=32, production-frontend coefficients), and B=1
+    against the CPU's plain path in the same policy. Returns the kernel
+    entries launched by the bf16 forward."""
+    import copy
+    from vae_teb_tpu_torch import (PhaseScattering1D, SeqVaeTeb,
+                                   WindowFrontend, init_parameters)
+    from vae_teb_tpu_torch.kernels import wavefront_fwd
+    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    gen = torch.Generator(device=device).manual_seed(8)
+    x = torch.randn((2, 32, N), generator=gen, device=device)
+    coeffs = frontend(x[0], x[1])
+    m32 = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
+    m16 = SeqVaeTeb(dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    m32, m16 = m32.to(device).eval(), m16.to(device).eval()
+    with torch.inference_mode():
+        want = m32(*coeffs, deterministic=True)
+        wavefront_fwd.entry_launches.clear()
+        got = m16(*coeffs, deterministic=True)
+        torch.cuda.synchronize()
+        launched = dict(wavefront_fwd.entry_launches)
+    failed = []
+    worst = {}
+    for k in OUT_KEYS:
+        if got[k].dtype != torch.bfloat16 or got[k].shape != want[k].shape:
+            failed.append(f"{k}: {got[k].dtype} {tuple(got[k].shape)}")
+            continue
+        if not torch.isfinite(got[k]).all():
+            failed.append(f"{k}: non-finite values")
+        worst[k] = ((got[k].float() - want[k]).abs().max()
+                    / want[k].abs().max().clamp_min(1e-30)).item()
+    log(f"bf16 policy vs fp32 (B=32, eval): max-abs/max per output "
+        f"{worst} (tol {BF16_FP32_REL_TOL}); kernel entries {launched}")
+    failed += [f"{k}: {v} > {BF16_FP32_REL_TOL}" for k, v in worst.items()
+               if not v <= BF16_FP32_REL_TOL]
+    if launched != {"wavefront_fwd_bf16": 1}:
+        failed.append(f"bf16 forward launched {launched}, expected "
+                      f"wavefront_fwd_bf16 once")
+
+    cpu = copy.deepcopy(m16).cpu()
+    one = [c[:1] for c in coeffs]
+    with torch.inference_mode():
+        card = m16(*one, deterministic=True)
+        plain = cpu(*[c.cpu() for c in one], deterministic=True)
+    vs_cpu = {k: ((card[k].float().cpu() - plain[k].float()).abs().max()
+                  / plain[k].float().abs().max().clamp_min(1e-30)).item()
+              for k in OUT_KEYS}
+    log(f"bf16 policy card vs CPU (B=1, identical coefficients): "
+        f"max-abs/max per output {vs_cpu} (tol {BF16_CPU_REL_TOL})")
+    failed += [f"card vs CPU {k}: {v} > {BF16_CPU_REL_TOL}"
+               for k, v in vs_cpu.items() if not v <= BF16_CPU_REL_TOL]
+    if failed:
+        raise AssertionError("bf16 forward checks failed:\n"
+                             + "\n".join(failed))
+    return launched
+
+
+def train_bf16(device, fp32_times):
+    """The production training policy: TrainerConfig(precision="bf16",
+    moment_dtype="bf16") on the full-width model, TRAIN_STEPS with the
+    frontend in the step; prints the median step beside the fp32 phase's.
+    Then one B=8 step against the plain reverse wavefront on the card and
+    against the CPU in the same policy. Returns the kernel entries launched
+    by the training steps."""
+    import copy
+    from vae_teb_tpu_torch import (PhaseScattering1D, SeqVaeTeb, Trainer,
+                                   TrainerConfig, WindowFrontend,
+                                   init_parameters)
+    from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
+                                           wavefront_fwd)
+    cfg = TrainerConfig(precision="bf16", moment_dtype="bf16")
+    model = SeqVaeTeb(dtype=cfg.model_dtype())
+    model.load_state_dict(init_parameters(SeqVaeTeb(), seed=INIT_SEED)
+                          .state_dict())
+    trainer = Trainer(model, cfg, device)
+    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    gen = torch.Generator(device=device).manual_seed(5)
+    raw_len = model.decoder.raw_len
+
+    def batch_of(b):
+        x = torch.randn((2, b, N), generator=gen, device=device)
+        return x[0], x[1], torch.randn((b, raw_len), generator=gen,
+                                       device=device)
+
+    def fields(coeffs, y_raw):
+        return dict(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs), fhr=y_raw)
+
+    wavefront_fwd.entry_launches.clear()
+    wavefront_bwd.entry_launches.clear()
+    steps, times = train_loop(trainer, frontend, batch_of, fields,
+                              trainer.beta_fn(0), "train bf16")
+    launched = Counter(wavefront_fwd.entry_launches)
+    launched.update(wavefront_bwd.entry_launches)
+    want = {"wavefront_fwd_res_bf16": steps, "wavefront_bwd_bf16": steps}
+    moments = {str(st["mu"].dtype) for st in trainer.optimizer.state.values()}
+    log(f"train bf16 launches {dict(launched)} in {steps} steps; Adam "
+        f"moments stored as {moments}")
+    if dict(launched) != want or moments != {"torch.bfloat16"}:
+        raise AssertionError(f"bf16 training launched {dict(launched)} "
+                             f"(expected {want}), moments {moments}")
+    for b in times:
+        log(f"median train step B={b} (same card, this run): bf16 policy "
+            f"{times[b][0]!r} ms without the frontend, {times[b][1]!r} ms "
+            f"with it; fp32 {fp32_times[b][0]!r} / {fp32_times[b][1]!r} ms")
+
+    # one B=8 step from the trained weights in the same policy: (a) on the
+    # card with the plain reverse wavefront behind the kernel forward, so
+    # both runs share a bit-identical forward; (b) on the CPU, and on the
+    # CPU with the coefficients moved by half a bf16 ulp, which measures how
+    # far the bf16 gradient moves under rounding-sized changes alone
+    fhr, up, y_raw = batch_of(8)
+    coeffs = frontend(fhr, up)
+    nudged = [c * (1 + 2 ** -9 * torch.randn(c.shape, generator=gen,
+                                              device=device)) for c in coeffs]
+    eps = torch.randn((8, raw_len // 16, 32), generator=gen, device=device)
+    wavefront_module = sys.modules["vae_teb_tpu_torch.kernels.wavefront"]
+    grads, metrics = {}, {}
+    for name in ("kernels", "plain backward", "CPU", "CPU nudged"):
+        on_cpu = name.startswith("CPU")
+        m = copy.deepcopy(model).to("cpu" if on_cpu else device)
+        batch = fields(nudged if name == "CPU nudged" else coeffs, y_raw)
+        if on_cpu:
+            batch = {k: v.cpu() for k, v in batch.items()}
+        if name == "plain backward":
+            wavefront_module.wavefront_bwd = wavefront_bwd_plain
+        try:
+            metrics[name] = Trainer(
+                m, cfg, "cpu" if on_cpu else device).train_step(
+                    batch, trainer.beta_fn(0),
+                    eps=eps.cpu() if on_cpu else eps)
+        finally:
+            wavefront_module.wavefront_bwd = wavefront_bwd
+        grads[name] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+        del m
+    dtypes = {g.dtype for g in grads["kernels"].values()}
+    worst, leaf, l2 = grad_report(grads["kernels"], grads["plain backward"])
+    loss_err = max(abs(metrics["kernels"][k].item()
+                       / metrics["CPU"][k].item() - 1)
+                   for k in metrics["CPU"] if k != "grad_norm")
+    _, _, l2_cpu = grad_report(grads["kernels"], grads["CPU"])
+    _, _, l2_nudge = grad_report(grads["CPU nudged"], grads["CPU"])
+    log(f"train bf16 step kernels vs plain backward (B=8, shared forward): "
+        f"gradients {dtypes}, worst max-abs/max {worst!r} ({leaf}; bar "
+        f"{BF16_GRAD_REL_TOL}), rel-L2 {l2!r} (bar {BF16_GRAD_L2_TOL})")
+    log(f"train bf16 step card vs CPU (B=8, identical coefficients and "
+        f"noise): losses rel {loss_err!r} (bar {BF16_METRIC_REL_TOL}); "
+        f"gradient rel-L2 {l2_cpu!r}, against {l2_nudge!r} between the CPU "
+        f"and the CPU on coefficients moved by half a bf16 ulp (bar "
+        f"{BF16_NUDGE_RATIO} times that); grad_norm card "
+        f"{metrics['kernels']['grad_norm'].item()!r}, CPU "
+        f"{metrics['CPU']['grad_norm'].item()!r}, CPU nudged "
+        f"{metrics['CPU nudged']['grad_norm'].item()!r}")
+    failed = [f"{name}: {v!r} > {bar!r}" for name, v, bar in (
+        (f"kernels vs plain backward: worst leaf {leaf}", worst,
+         BF16_GRAD_REL_TOL),
+        ("kernels vs plain backward: rel-L2", l2, BF16_GRAD_L2_TOL),
+        ("card vs CPU losses", loss_err, BF16_METRIC_REL_TOL),
+        ("card vs CPU gradient rel-L2", l2_cpu, BF16_NUDGE_RATIO * l2_nudge))
+        if not v <= bar]
+    if dtypes != {torch.float32}:
+        failed.append(f"gradient dtypes {dtypes}")
+    if failed:
+        raise AssertionError("bf16 step checks failed:\n"
+                             + "\n".join(failed))
+    return launched
+
+
+class _Windows:
+    """Coefficient arrays in raw (C, S) layout, read as a dataset by
+    PackedWindowStore.build."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+        self.stats, self.trim_minutes, self.raw_layout = None, None, True
+
+    def __len__(self):
+        return len(self.arrays["fhr"])
+
+    def read_batch(self, indices):
+        idx = list(indices)
+        return {k: v[idx] for k, v in self.arrays.items()}
+
+
+def _field_stats(arrays):
+    """Normalization statistics over the generated training set, after the
+    production transforms (log on fhr_st's channels 1.., asinh on the phase
+    families), float64 moments per channel."""
+    from vae_teb_tpu_torch.data import (apply_channel_transforms,
+                                        default_field_stats)
+    out = {"fhr": default_field_stats("fhr", arrays["fhr"].mean(),
+                                      arrays["fhr"].var())}
+    for name in ("fhr_st", "fhr_ph", "fhr_up_ph"):
+        x = arrays[name].astype(np.float64)
+        probe = default_field_stats(name, np.zeros(x.shape[1]),
+                                    np.ones(x.shape[1]))
+        x = apply_channel_transforms(x, probe.log_channels,
+                                     probe.asinh_channels, probe.log_epsilon)
+        out[name] = default_field_stats(name, x.mean(axis=(0, 2)),
+                                        x.var(axis=(0, 2)))
+    return out
+
+
+def fit_phase(device):
+    """`cli train`'s function on the card: seeded windows through the
+    frontend into two packed stores (raw layout), a RunConfig built in code
+    (bf16, bf16 moments, batch 32, accumulate 2, prefetch 2, keep 2, 3
+    epochs, device normalization), run_training, then a resume for a 4th
+    epoch. Returns the kernel entries launched."""
+    import json
+    import os
+    import tempfile
+    from vae_teb_tpu_torch import PhaseScattering1D, Trainer, WindowFrontend
+    from vae_teb_tpu_torch.cli import run_training
+    from vae_teb_tpu_torch.data import PackedWindowStore
+    from vae_teb_tpu_torch.kernels import wavefront_bwd, wavefront_fwd
+    from vae_teb_tpu_torch.train import (Checkpointer, DatasetConfig,
+                                         ModelConfig, RunConfig,
+                                         TrainerConfig)
+    from vae_teb_tpu_torch.utils import setup_logging
+    setup_logging(capture_root=False)
+    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    def windows(n):
+        """n seeded raw windows -> raw-layout coefficients and, as the
+        target fhr, the FHR window trimmed to the 16 S samples the
+        coefficients cover (the middle 4800 of 5760)."""
+        parts = {k: [] for k in ("fhr_st", "fhr_ph", "fhr_up_ph", "fhr")}
+        for _ in range(n // 32):
+            x = torch.randn((2, 32, N), generator=gen, device=device)
+            coeffs = frontend(x[0], x[1])
+            for k, c in zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs):
+                parts[k].append(c.transpose(1, 2).cpu().numpy())
+            trim = (N - 16 * coeffs[0].shape[1]) // 2
+            parts["fhr"].append(x[0, :, trim:N - trim].cpu().numpy())
+        return {k: np.ascontiguousarray(np.concatenate(v))
+                for k, v in parts.items()}
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_scratch")
+    os.makedirs(root, exist_ok=True)
+    seen = []
+    step_fn = Trainer.train_step
+
+    def spy(self, batch, beta, eps=None):
+        seen.append({k: (type(v).__name__, getattr(v, "device", None))
+                     for k, v in batch.items()})
+        return step_fn(self, batch, beta, eps)
+
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        train_arrays, val_arrays = windows(FIT_WINDOWS[0]), windows(
+            FIT_WINDOWS[1])
+        stores = []
+        for name, arrays in (("train", train_arrays), ("val", val_arrays)):
+            PackedWindowStore.build(_Windows(arrays), os.path.join(tmp, name))
+            stores.append(os.path.join(tmp, name))
+        cfg = RunConfig(
+            tag="smoke", out_dir_base=os.path.join(tmp, "runs"),
+            model=ModelConfig(input_channels=train_arrays["fhr_up_ph"].shape[1],
+                              n_scattering=train_arrays["fhr_st"].shape[1],
+                              n_phase=train_arrays["fhr_ph"].shape[1]),
+            trainer=TrainerConfig(precision="bf16", moment_dtype="bf16",
+                                  accumulate_grad_batches=2, prefetch=2,
+                                  epochs=3, seed=INIT_SEED),
+            dataset=DatasetConfig(train_paths=stores[:1],
+                                  validation_paths=stores[1:],
+                                  batch_size=32, eval_batch_size=32))
+        cfg.checkpoints.keep = 2
+        stats = _field_stats(train_arrays)
+        wavefront_fwd.entry_launches.clear()
+        wavefront_bwd.entry_launches.clear()
+        Trainer.train_step = spy
+        try:
+            t0 = time.perf_counter()
+            first = run_training(cfg, device, normalize_stats=stats)
+            t1 = time.perf_counter()
+            saved = first.state_dict()
+            ckpt = Checkpointer(os.path.join(cfg.run_dir(),
+                                             "model_checkpoints"), keep=2)
+            restored = ckpt.restore(step=2)
+            cfg.trainer.epochs = 4
+            t2 = time.perf_counter()
+            second = run_training(cfg, device, resume=True,
+                                  normalize_stats=stats)
+            t3 = time.perf_counter()
+        finally:
+            Trainer.train_step = step_fn
+        launched = Counter(wavefront_fwd.entry_launches)
+        launched.update(wavefront_bwd.entry_launches)
+        with open(os.path.join(ckpt.directory, "index.json")) as f:
+            index = json.load(f)
+        on_disk = sorted(d for d in os.listdir(ckpt.directory)
+                         if d.startswith("step_"))
+
+    failed = []
+    hist = second.history
+    n_steps = FIT_WINDOWS[0] // 32
+    log(f"fit: 3 epochs in {t1 - t0:.2f} s, resumed 4th in {t3 - t2:.2f} s "
+        f"(set-up included); history epochs {hist['epoch']}, train "
+        f"{hist['train/total_loss']}, val {hist['val/total_loss']}, win/s "
+        f"{hist['windows_per_sec']}")
+    if hist["epoch"] != [0, 1, 2, 3]:
+        failed.append(f"history epochs {hist['epoch']}")
+    for key in ("train/total_loss", "val/total_loss", "windows_per_sec"):
+        if len(hist[key]) != 4 or not all(np.isfinite(v) and (
+                v > 0 or key != "windows_per_sec") for v in hist[key]):
+            failed.append(f"history {key}: {hist[key]}")
+    metrics = dict(zip(hist["epoch"], hist["val/total_loss"]))
+    keep = {3} | set(sorted(metrics, key=metrics.get)[:2])
+    kept = {e["step"] for e in index}
+    log(f"fit: index.json steps {sorted(kept)}, directories {on_disk}; "
+        f"expected best 2 by val total_loss plus the latest: {sorted(keep)}")
+    if kept != keep or on_disk != [f"step_{k:08d}" for k in sorted(keep)]:
+        failed.append(f"checkpoints kept {sorted(kept)} / {on_disk}, "
+                      f"expected {sorted(keep)}")
+    diff = [k for k, v in saved["model"].items()
+            if not torch.equal(v.cpu(), restored["model"][k])]
+    mom = saved["optimizer"]["inner"]
+    mom_diff = sum(not torch.equal(a.cpu(), b) for name in ("mu", "nu")
+                   for a, b in zip(mom[name], restored["optimizer"]["inner"]
+                                   [name]))
+    log(f"fit: checkpoint of epoch 2 against the trainer that wrote it: "
+        f"{len(diff)} of {len(saved['model'])} model entries and {mom_diff} "
+        f"moments differ; moments stored as "
+        f"{restored['optimizer']['inner']['mu'][0].dtype}")
+    if diff or mom_diff or restored["step"] != saved["step"]:
+        failed.append(f"restored state differs: {diff[:5]}, {mom_diff} "
+                      f"moments, step {restored['step']} vs {saved['step']}")
+    counts = (first.optimizer.inner.count, second.optimizer.inner.count,
+              first.step, second.step)
+    want = (3 * n_steps // 2, 4 * n_steps // 2, 3 * n_steps, 4 * n_steps)
+    log(f"fit: optimizer updates / train steps after 3 epochs "
+        f"{counts[0]} / {counts[2]}, after the resumed 4th {counts[1]} / "
+        f"{counts[3]} (expected {want})")
+    if counts != want:
+        failed.append(f"optimizer count and steps {counts}, expected {want}")
+    devices = {str(v[1]) for batch in seen for v in batch.values()}
+    types = {v[0] for batch in seen for v in batch.values()}
+    log(f"fit: {len(seen)} train steps took batches of {types} on {devices}")
+    if len(seen) != 4 * n_steps or types != {"Tensor"} or any(
+            not d.startswith("cuda") for d in devices):
+        failed.append(f"prefetch delivered {types} on {devices} in "
+                      f"{len(seen)} steps")
+    want = {"wavefront_fwd_res_bf16": 4 * n_steps,
+            "wavefront_bwd_bf16": 4 * n_steps,
+            "wavefront_fwd_bf16": 4 * FIT_WINDOWS[1] // 32}
+    log(f"fit: kernel entries launched {dict(launched)} (expected {want}: "
+        f"one residual forward and one backward a train step, one forward "
+        f"a validation batch)")
+    if dict(launched) != want:
+        failed.append(f"fit launched {dict(launched)}, expected {want}")
+    if failed:
+        raise AssertionError("fit checks failed:\n" + "\n".join(failed))
+    return launched
 
 
 def main(argv) -> int:
@@ -716,13 +1132,18 @@ def main(argv) -> int:
 
     kernels = check_kernels(device)
     launches = serve(device)
-    res_launches, bwd_launches = train(device)
+    (res_launches, bwd_launches), fp32_times = train(device)
+    bf16 = {"bf16_forward": bf16_forward(device),   # per phase
+            "bf16_train": train_bf16(device, fp32_times),
+            "fit": fit_phase(device)}
 
     case = ((4, 4), 32, torch.float32)
-    entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd"),
+    entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
+                "wavefront_fwd_bf16"),
                ("wavefront_fwd_residuals", "wavefront_fwd.cu", 80,
-                res_launches, "fwd_res"),
-               ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches, "bwd"))
+                res_launches, "fwd_res", "wavefront_fwd_res_bf16"),
+               ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches, "bwd",
+                "wavefront_bwd_bf16"))
     # each kernel's numbers at the main path's training batch (B=32, fp32)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -730,7 +1151,7 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     rows = []
-    for name, src, line, n, key in entries:
+    for name, src, line, n, key, bf16_entry in entries:
         err, ms, plain_ms, library_ms, (bound_ms, bound_by) = kernels[
             (key,) + case]
         rows.append({
@@ -739,7 +1160,9 @@ def main(argv) -> int:
             "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
             "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "library_ms": library_ms,
+            "bf16_launches": {phase: counts.get(bf16_entry, 0)
+                              for phase, counts in bf16.items()}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,7 +6,9 @@ launches the hand-written kernel (`wavefront_fwd.cu`, `wavefront_bwd.cu`),
 anything else raises. Each kernel launch adds one to its wrapper's count:
 `wavefront_fwd.launches` (serving forward), `wavefront_fwd.residual_launches`
 (training forward, which also stores the residuals) and
-`wavefront_bwd.launches`.
+`wavefront_bwd.launches`; and to the count of the entry point it launched,
+by name (`wavefront_fwd_res_bf16`, ...), in the wrapper's `entry_launches`
+Counter.
 
 The kernels run one thread-block cluster of U CTAs (one per unit) per
 group of M batch rows, each CTA holding its unit's weight blocks in shared
@@ -22,6 +24,7 @@ the weight gradients outside the recurrence, as the JAX package's custom VJP doe
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -286,6 +289,7 @@ def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
             torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    wavefront_fwd.entry_launches[entry] += 1
     if with_residuals:
         wavefront_fwd.residual_launches += 1
         return h_seq, h_fin, c_fin, gates_seq, c_seq
@@ -295,6 +299,7 @@ def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
 
 wavefront_fwd.launches = 0
 wavefront_fwd.residual_launches = 0
+wavefront_fwd.entry_launches = Counter()
 
 
 def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
@@ -336,10 +341,12 @@ def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
     if err:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     wavefront_bwd.launches += 1
+    wavefront_bwd.entry_launches[entry] += 1
     return dgates_seq, dh_fin, dc_fin
 
 
 wavefront_bwd.launches = 0
+wavefront_bwd.entry_launches = Counter()
 
 
 class WavefrontFunction(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """SeqVaeTeb: sequence VAE with Target-Encoder-Bank conditioning.
 
-Port of `vae_teb_tpu.models.vae_teb` (fp32). The information flow is the
-JAX package's:
+Port of `vae_teb_tpu.models.vae_teb`. The information flow is the JAX
+package's:
 
   SourceEncoder       x_ph (B,S,130) -> mu_x (B,S,32)          [causal]
   TargetEncoder       y_st (B,S,43), y_ph (B,S,44)
@@ -19,6 +19,11 @@ flag: in training mode (`model.train()`) BatchNorm normalizes with batch
 statistics and updates its running averages; in eval mode it uses the
 running averages. Sampling of z is a separate switch (`deterministic`), as
 in the JAX package.
+
+`dtype` is the compute precision policy (`SeqVaeTeb(dtype=torch.bfloat16)`,
+the JAX package's `SeqVaeTeb(dtype=jnp.bfloat16)`): parameters stay float32,
+every layer computes in `dtype` (see `blocks`), the noise of z is drawn in
+it and z formed in it, and the loss functions cast back to float32.
 """
 
 from __future__ import annotations
@@ -29,8 +34,9 @@ import torch
 import torch.nn as nn
 
 from ..kernels import wavefront_recurrence
-from .blocks import (LSTM, CausalConvBlock, ReflectConvBlock, ResidualMLP,
-                     _layer_norm, geometric_schedule, gelu, run_lstm_streams)
+from .blocks import (LSTM, CausalConvBlock, Dtype, LayerNorm,
+                     ReflectConvBlock, ResidualMLP, geometric_schedule, gelu,
+                     run_lstm_streams)
 
 LATENT_DIM = 32
 UPSAMPLE = 16   # raw samples per latent step: 4 2x-upsampling conv blocks
@@ -104,34 +110,36 @@ class TargetEncoder(nn.Module):
     source encoder's as one wavefront."""
 
     def __init__(self, lstm_hidden_dim: int = 64, lstm_num_layers: int = 4,
-                 n_scattering: int = 43, n_phase: int = 44):
+                 n_scattering: int = 43, n_phase: int = 44,
+                 dtype: Dtype = None):
         super().__init__()
-        H = lstm_hidden_dim
+        H, dt = lstm_hidden_dim, dtype
         self.mlp_scattering = ResidualMLP(
             n_scattering, geometric_schedule(n_scattering, 16, 4),
-            final_activation=False, activation=gelu)
+            final_activation=False, activation=gelu, dtype=dt)
         self.mlp_phase = ResidualMLP(
             n_phase, geometric_schedule(n_phase, 16, 4),
-            final_activation=False)
-        self.conv_scattering_0 = CausalConvBlock(16, 16, 3)
-        self.conv_scattering_1 = CausalConvBlock(16, 16, 5)
-        self.conv_scattering_2 = CausalConvBlock(16, 16, 7)
-        self.scatter_fused_norm = _layer_norm(16)
-        self.conv_phase_0 = CausalConvBlock(16, 16, 3)
-        self.conv_phase_1 = CausalConvBlock(16, 16, 5)
-        self.conv_phase_2 = CausalConvBlock(16, 16, 7)
-        self.phase_fused_norm = _layer_norm(16)
+            final_activation=False, dtype=dt)
+        self.conv_scattering_0 = CausalConvBlock(16, 16, 3, dt)
+        self.conv_scattering_1 = CausalConvBlock(16, 16, 5, dt)
+        self.conv_scattering_2 = CausalConvBlock(16, 16, 7, dt)
+        self.scatter_fused_norm = LayerNorm(16, dt)
+        self.conv_phase_0 = CausalConvBlock(16, 16, 3, dt)
+        self.conv_phase_1 = CausalConvBlock(16, 16, 5, dt)
+        self.conv_phase_2 = CausalConvBlock(16, 16, 7, dt)
+        self.phase_fused_norm = LayerNorm(16, dt)
         self.cross_modal_fusion = ResidualMLP(
-            32, geometric_schedule(32, 20, 5), final_activation=False)
-        self.lstm = LSTM(20, H, lstm_num_layers)
-        self.lstm_norm = _layer_norm(H)
+            32, geometric_schedule(32, 20, 5), final_activation=False,
+            dtype=dt)
+        self.lstm = LSTM(20, H, lstm_num_layers, dt)
+        self.lstm_norm = LayerNorm(H, dt)
         self.pre_output = ResidualMLP(H, geometric_schedule(H, 32, 5),
-                                      final_activation=True)
+                                      final_activation=True, dtype=dt)
         self.mu_layer = ResidualMLP(32, geometric_schedule(32, LATENT_DIM, 32),
-                                    final_activation=False)
+                                    final_activation=False, dtype=dt)
         self.logvar_layer = ResidualMLP(
             32, geometric_schedule(32, 2 * LATENT_DIM, 4),
-            final_activation=False)
+            final_activation=False, dtype=dt)
 
     def pre_lstm(self, y_st, y_ph):
         sc = self.mlp_scattering(y_st)
@@ -161,22 +169,22 @@ class SourceEncoder(nn.Module):
     (run by SeqVaeTeb.encode between pre_lstm and head)."""
 
     def __init__(self, input_channels: int = 130, lstm_hidden_dim: int = 64,
-                 lstm_num_layers: int = 4):
+                 lstm_num_layers: int = 4, dtype: Dtype = None):
         super().__init__()
-        H, W = lstm_hidden_dim, SOURCE_CONV_WIDTH
+        H, W, dt = lstm_hidden_dim, SOURCE_CONV_WIDTH, dtype
         self.mlp = ResidualMLP(input_channels,
                                geometric_schedule(input_channels, W, 5),
-                               final_activation=False)
-        self.conv_0 = CausalConvBlock(W, W, SOURCE_CONV_KERNELS[0])
-        self.conv_1 = CausalConvBlock(W, W, SOURCE_CONV_KERNELS[1])
-        self.conv_2 = CausalConvBlock(W, W, SOURCE_CONV_KERNELS[2])
-        self.fused_norm = _layer_norm(W)
-        self.lstm = LSTM(W, H, lstm_num_layers)
-        self.lstm_norm = _layer_norm(H)
+                               final_activation=False, dtype=dt)
+        self.conv_0 = CausalConvBlock(W, W, SOURCE_CONV_KERNELS[0], dt)
+        self.conv_1 = CausalConvBlock(W, W, SOURCE_CONV_KERNELS[1], dt)
+        self.conv_2 = CausalConvBlock(W, W, SOURCE_CONV_KERNELS[2], dt)
+        self.fused_norm = LayerNorm(W, dt)
+        self.lstm = LSTM(W, H, lstm_num_layers, dt)
+        self.lstm_norm = LayerNorm(H, dt)
         self.pre_output = ResidualMLP(H, geometric_schedule(H, 32, 4),
-                                      final_activation=True)
+                                      final_activation=True, dtype=dt)
         self.mu_layer = ResidualMLP(32, geometric_schedule(32, LATENT_DIM, 4),
-                                    final_activation=False)
+                                    final_activation=False, dtype=dt)
 
     def pre_lstm(self, x):
         x = self.mlp(x)
@@ -193,14 +201,15 @@ class ConditionalEncoder(nn.Module):
     logvar heads. The geometric schedule over 8 hidden layers is split 5
     (trunk) + 3 (each head)."""
 
-    def __init__(self):
+    def __init__(self, dtype: Dtype = None):
         super().__init__()
         dims = geometric_schedule(2 * LATENT_DIM, LATENT_DIM, 8)
-        self.mlp = ResidualMLP(2 * LATENT_DIM, dims[0:5], final_activation=True)
+        self.mlp = ResidualMLP(2 * LATENT_DIM, dims[0:5], final_activation=True,
+                               dtype=dtype)
         self.fc_mu = ResidualMLP(dims[4], dims[5:], final_activation=False,
-                                 use_skip_connection=False)
+                                 use_skip_connection=False, dtype=dtype)
         self.fc_logvar = ResidualMLP(dims[4], dims[5:], final_activation=False,
-                                     use_skip_connection=False)
+                                     use_skip_connection=False, dtype=dtype)
 
     def forward(self, h_x, h_y):
         h = self.mlp(torch.cat([h_x, h_y], dim=-1))
@@ -218,25 +227,27 @@ class Decoder(nn.Module):
     (B, 16*S)): MLP trunk, 8 reflect-conv blocks with 4 2x-upsample stages,
     two dense heads of width 16*seq_len."""
 
-    def __init__(self, coeff_channels: int = 87, seq_len: int = 300):
+    def __init__(self, coeff_channels: int = 87, seq_len: int = 300,
+                 dtype: Dtype = None):
         super().__init__()
         self.raw_len = seq_len * UPSAMPLE
         self.linear_0 = ResidualMLP(LATENT_DIM,
                                     geometric_schedule(LATENT_DIM, 50, 5),
-                                    final_activation=True)
+                                    final_activation=True, dtype=dtype)
         self.linear_1 = ResidualMLP(50, geometric_schedule(50, coeff_channels, 5),
-                                    final_activation=True)
+                                    final_activation=True, dtype=dtype)
         in_features = coeff_channels
         for i, (feat, k, up) in enumerate(DECODER_CONV_SPEC):
-            self.add_module(f"conv_{i}", ReflectConvBlock(in_features, feat, k,
-                                                          up_sampling=up))
+            self.add_module(f"conv_{i}", ReflectConvBlock(
+                in_features, feat, k, up_sampling=up, dtype=dtype))
             in_features = feat
         self.output_mu = ResidualMLP(self.raw_len, (self.raw_len,) * 2,
                                      final_activation=False,
-                                     use_skip_connection=False)
+                                     use_skip_connection=False, dtype=dtype)
         self.output_logvar = ResidualMLP(self.raw_len, (self.raw_len,) * 2,
                                          final_activation=False,
-                                         use_skip_connection=False)
+                                         use_skip_connection=False,
+                                         dtype=dtype)
 
     def forward(self, z):
         linear_output = self.linear_1(self.linear_0(z))
@@ -263,15 +274,17 @@ class SeqVaeTeb(nn.Module):
 
     def __init__(self, input_channels: int = 130, n_scattering: int = 43,
                  n_phase: int = 44, lstm_hidden_dim: int = 64,
-                 lstm_num_layers: int = 4, seq_len: int = 300):
+                 lstm_num_layers: int = 4, seq_len: int = 300,
+                 dtype: Dtype = None):
         super().__init__()
+        self.dtype = dtype
         self.recurrence: Callable = wavefront_recurrence
         self.source_encoder = SourceEncoder(input_channels, lstm_hidden_dim,
-                                            lstm_num_layers)
+                                            lstm_num_layers, dtype)
         self.target_encoder = TargetEncoder(lstm_hidden_dim, lstm_num_layers,
-                                            n_scattering, n_phase)
-        self.conditional_encoder = ConditionalEncoder()
-        self.decoder = Decoder(n_scattering + n_phase, seq_len)
+                                            n_scattering, n_phase, dtype)
+        self.conditional_encoder = ConditionalEncoder(dtype)
+        self.decoder = Decoder(n_scattering + n_phase, seq_len, dtype)
 
     def encode(self, y_st, y_ph, x_ph) -> Dict[str, torch.Tensor]:
         """All three encoders; the two LSTMs run as one wavefront."""
@@ -295,7 +308,9 @@ class SeqVaeTeb(nn.Module):
         z = mu_post + eps * exp(logvar_post / 2) with standard-normal eps
         drawn from `generator` (on the inputs' device), or the caller's
         `eps` of mu_post's shape (noise shared between two runs, or with
-        the JAX package). One of the two is required."""
+        the JAX package). One of the two is required. eps is drawn in, or
+        cast to, mu_post's dtype (the compute dtype) and z is formed in it,
+        as the JAX package draws its noise in the compute dtype."""
         enc = self.encode(y_st, y_ph, x_ph)
         mu, logvar = enc["mu_post"], enc["logvar_post"]
         if deterministic:

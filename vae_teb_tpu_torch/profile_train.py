@@ -1,11 +1,13 @@
 """Where the time of a training step, and of a serving request, goes on
 the card.
 
-    python -m vae_teb_tpu_torch.profile_train     # one CUDA device
+    python -m vae_teb_tpu_torch.profile_train [--precision fp32 bf16]
 
-Builds the full-width SeqVaeTeb (seeded init) and a Trainer with its
-defaults (fp32, TF32 off), then at B = 32 and 128 on a fixed batch of raw
-windows through the production frontend measures:
+(one CUDA device). For each precision given (default fp32) it builds the
+full-width SeqVaeTeb (seeded init) and a Trainer (fp32: the defaults;
+bf16: the production policy, TrainerConfig(precision="bf16",
+moment_dtype="bf16"); TF32 off), then at B = 32 and 128 on a fixed batch
+of raw windows through the production frontend measures:
 
   step          host clock around train_step, synchronized (median of 5)
   frontend      CUDA events around the frontend (median of 5)
@@ -18,9 +20,10 @@ windows through the production frontend measures:
   optimizer     CUDA events around ClippedAdamW.step()
   idle share    1 - device busy time per step / step time
 
-and prints one JSON line per batch size (also written to
+and prints one JSON line per precision and batch size (also written to
 chiprun_out/profile_train.json when that directory exists). Then, for a
-serving request (`InferenceServer.infer`, eval mode) at B = 1, 8 and 32:
+serving request (`InferenceServer.infer`, eval mode) of the first
+precision's model at B = 1, 8 and 32:
 
   request       host clock around infer, synchronized (median of 5)
   frontend      CUDA events around the frontend (median of 5)
@@ -34,6 +37,7 @@ one JSON line per batch size (chiprun_out/profile_serve.json).
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -83,13 +87,15 @@ def _busy_us(events) -> float:
     return busy
 
 
-def _top(prof, n: int = 12) -> list:
-    """The n host operators with the most host time: (name, calls, host
-    ms, device ms)."""
+def _top(prof, n: int = 12, by_device: bool = False) -> list:
+    """The n host operators with the most host time (by_device: the most
+    device time of their own kernels): (name, calls, host ms, device ms,
+    own device ms)."""
     rows = [(e.key, e.count, e.self_cpu_time_total / 1e3,
-             getattr(e, "device_time_total", 0.0) / 1e3)
+             getattr(e, "device_time_total", 0.0) / 1e3,
+             getattr(e, "self_device_time_total", 0.0) / 1e3)
             for e in prof.key_averages()]
-    return sorted(rows, key=lambda r: -r[2])[:n]
+    return sorted(rows, key=lambda r: -r[4 if by_device else 2])[:n]
 
 
 def _serve_rows(model, frontend_ops, device, smi) -> list:
@@ -136,15 +142,16 @@ def _serve_rows(model, frontend_ops, device, smi) -> list:
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--precision", nargs="+", default=["fp32"],
+                        choices=["fp32", "bf16"])
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device visible", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     from . import (PhaseScattering1D, SeqVaeTeb, Trainer, TrainerConfig,
                    WindowFrontend, init_parameters)
-    from .models import compute_loss
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -152,9 +159,33 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    model = init_parameters(SeqVaeTeb(), seed=2)
-    trainer = Trainer(model, TrainerConfig(), device)
     frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    rows, serve_model = [], None
+    for precision in args.precision:
+        cfg = TrainerConfig(precision=precision, moment_dtype=precision)
+        model = SeqVaeTeb(dtype=cfg.model_dtype())
+        model.load_state_dict(init_parameters(SeqVaeTeb(), seed=2)
+                              .state_dict())
+        trainer = Trainer(model, cfg, device)
+        rows += _train_rows(trainer, frontend, smi)
+        if serve_model is None:
+            serve_model = model
+        del trainer
+    serve_rows = _serve_rows(serve_model, frontend.frontend, device, smi)
+    if os.path.isdir("chiprun_out"):
+        for name, out in (("profile_train", rows), ("profile_serve",
+                                                    serve_rows)):
+            with open(os.path.join("chiprun_out", f"{name}.json"), "w") as f:
+                json.dump(out, f, indent=1)
+    return 0
+
+
+def _train_rows(trainer, frontend, smi) -> list:
+    """The training breakdown of `trainer` at each of BATCHES."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .models import compute_loss
+    model, device = trainer.model, trainer.device
     gen = torch.Generator(device=device).manual_seed(6)
     rows = []
     for b in BATCHES:
@@ -163,6 +194,7 @@ def main() -> int:
                             device=device)
         coeffs = frontend(x[0], x[1])
         batch = dict(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs), fhr=y_raw)
+        torch.cuda.reset_peak_memory_stats(device)
         for _ in range(2):
             trainer.train_step(batch, 1e-5)
         steps = []
@@ -204,7 +236,9 @@ def main() -> int:
                      for key in ("fwd", "bwd")}
         busy_ms = _busy_us(kernels) / 1e3 / n_prof
         n_kernels = len(kernels)
-        row = {"batch": b, "step_ms": step_ms, "frontend_ms": frontend_ms,
+        row = {"precision": trainer.config.precision,
+               "moment_dtype": trainer.config.moment_dtype,
+               "batch": b, "step_ms": step_ms, "frontend_ms": frontend_ms,
                "forward_ms": forward_ms,
                "wavefront_fwd_kernel_ms": kernel_us["fwd"] / 1e3 / n_prof,
                "wavefront_bwd_kernel_ms": kernel_us["bwd"] / 1e3 / n_prof,
@@ -214,16 +248,12 @@ def main() -> int:
                "idle_share": 1 - busy_ms / step_ms,
                "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
                "optimizer_top_host_ops": optimizer_top,
-               "step_top_host_ops": _top(prof), "card": smi}
+               "step_top_host_ops": _top(prof),
+               "step_top_device_ops": _top(prof, 16, by_device=True),
+               "card": smi}
         rows.append(row)
         print(json.dumps(row), flush=True)
-    serve_rows = _serve_rows(model, frontend.frontend, device, smi)
-    if os.path.isdir("chiprun_out"):
-        for name, out in (("profile_train", rows), ("profile_serve",
-                                                    serve_rows)):
-            with open(os.path.join("chiprun_out", f"{name}.json"), "w") as f:
-                json.dump(out, f, indent=1)
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,8 +1,16 @@
-"""Training: schedules, the clipped AdamW chain and the train/eval step."""
+"""Training: schedules, the clipped AdamW chain and gradient accumulation,
+the Trainer (steps and fit), checkpoints, callbacks and the run config."""
 
-from .schedules import (ClippedAdamW, beta_schedule, cosine_warm_restarts,
-                        make_optimizer)
+from .callbacks import Callback, HistoryCallback, MemoryMonitorCallback
+from .checkpoint import Checkpointer
+from .config import (CheckpointConfig, DatasetConfig, ModelConfig, RunConfig,
+                     load_config, save_config)
+from .schedules import (ClippedAdamW, MultiSteps, beta_schedule,
+                        cosine_warm_restarts, global_norm, make_optimizer)
 from .trainer import Trainer, TrainerConfig
 
-__all__ = ["ClippedAdamW", "Trainer", "TrainerConfig", "beta_schedule",
-           "cosine_warm_restarts", "make_optimizer"]
+__all__ = ["Callback", "CheckpointConfig", "Checkpointer", "ClippedAdamW",
+           "DatasetConfig", "HistoryCallback", "MemoryMonitorCallback",
+           "ModelConfig", "MultiSteps", "RunConfig", "Trainer",
+           "TrainerConfig", "beta_schedule", "cosine_warm_restarts",
+           "global_norm", "load_config", "make_optimizer", "save_config"]

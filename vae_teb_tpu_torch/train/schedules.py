@@ -1,4 +1,5 @@
-"""Beta (KLD weight) and learning-rate schedules, and the optimizer.
+"""Beta (KLD weight) and learning-rate schedules, the optimizer, and
+gradient accumulation.
 
 Port of `vae_teb_tpu.train.schedules`. `make_optimizer` builds the JAX
 package's optax chain as one `torch.optim.Optimizer`:
@@ -20,12 +21,15 @@ with optax's arithmetic, which differs from PyTorch's stock pieces:
 The JAX package packs its small parameters into one flat vector for the
 chain (`flat_param_fusion`); packing does not change the result, so this
 port runs the same math over the parameter list with `torch._foreach_*`.
+
+`MultiSteps` is `optax.MultiSteps`: gradients averaged over k micro-steps,
+the wrapped optimizer stepped once per k on the average.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -64,6 +68,16 @@ def cosine_warm_restarts(base_lr: float, t0_steps: int,
         return float(f32(base_lr) * (f32(eta_min_ratio)
                                      + f32(1.0 - eta_min_ratio) * cos))
     return fn
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all gradients together (`optax.global_norm`), a 0-dim
+    tensor on their device."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def _params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    return [p for group in optimizer.param_groups for p in group["params"]]
 
 
 class ClippedAdamW(torch.optim.Optimizer):
@@ -111,7 +125,7 @@ class ClippedAdamW(torch.optim.Optimizer):
         # optax.clip_by_global_norm: below max_norm the gradient passes
         # unchanged, above it becomes (g / norm) * max_norm; one divisor and
         # one factor per branch keep both exact without a host round trip
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = global_norm(grads)
         max_norm = group["grad_clip_norm"]
         below = norm < max_norm
         g = torch._foreach_div(grads, torch.where(below, 1.0, norm))
@@ -150,6 +164,85 @@ class ClippedAdamW(torch.optim.Optimizer):
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(params, upd)
         return norm
+
+    def state_dict(self) -> Dict:
+        """The update count and both moments per parameter, in the
+        parameters' order and the moments' own dtype (None for a parameter
+        not yet stepped). The schedule and hyperparameters are not state:
+        they come from the constructor."""
+        params = _params(self)
+        return {"count": self.count,
+                "mu": [self.state[p]["mu"] if p in self.state else None
+                       for p in params],
+                "nu": [self.state[p]["nu"] if p in self.state else None
+                       for p in params]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        params = _params(self)
+        if len(state["mu"]) != len(params):
+            raise ValueError(f"optimizer state for {len(state['mu'])} "
+                             f"parameters, this optimizer has {len(params)}")
+        self.count = int(state["count"])
+        self.state.clear()
+        for p, mu, nu in zip(params, state["mu"], state["nu"]):
+            if mu is not None:
+                self.state[p] = {"mu": mu.to(p.device), "nu": nu.to(p.device)}
+
+
+class MultiSteps:
+    """`optax.MultiSteps(inner, every_k_schedule=k)`: gradient accumulation.
+
+    Each `step()` folds the parameters' current gradients into a running
+    mean, acc += (g - acc) / (micro_step + 1), as optax does. On the k-th
+    micro-step it hands the mean to the wrapped optimizer as `p.grad` and
+    steps it once, then resets the mean; on the others the parameters, the
+    wrapped optimizer's state and its count stay as they are. `step()`
+    returns the global norm of the micro-step's own gradient, the
+    `grad_norm` the JAX package reports per micro-step.
+    """
+
+    def __init__(self, inner: torch.optim.Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner = inner
+        self.every_k = every_k
+        self.mini_step = 0
+        self.acc: Optional[List[torch.Tensor]] = None
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        params = _params(self.inner)
+        if any(p.grad is None for p in params):
+            raise RuntimeError("MultiSteps.step: every parameter needs a "
+                               "gradient")
+        grads = [p.grad for p in params]
+        norm = global_norm(grads)
+        if self.acc is None:
+            self.acc = [torch.zeros_like(g) for g in grads]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        self.mini_step += 1
+        if self.mini_step == self.every_k:
+            for p, a in zip(params, self.acc):
+                p.grad = a
+            self.inner.step()
+            self.acc, self.mini_step = None, 0
+        return norm
+
+    def state_dict(self) -> Dict:
+        return {"mini_step": self.mini_step, "acc": self.acc,
+                "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        params = _params(self.inner)
+        self.inner.load_state_dict(state["inner"])
+        self.mini_step = int(state["mini_step"])
+        self.acc = (None if state["acc"] is None else
+                    [a.to(p.device) for a, p in zip(state["acc"], params)])
 
 
 def make_optimizer(params: Iterable[torch.Tensor],
