@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, training step and training entry
-point on an NVIDIA GPU.
+"""Drive the PyTorch port's serving path, training step, training entry
+point, exact frontend and dataset ETL on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
@@ -58,7 +58,20 @@ Phases, each of which raises on failure (exit code 1):
      for a 4th; checks the history, the checkpoints kept, the restored
      state bit for bit, the optimizer's count, and that prefetch handed
      the steps tensors on the card;
-  9. print the card's nvidia-smi name and power limit, one JSON line for
+  9. the exact frontend and the ETL (no kernel of its own): order-2
+     scattering against the torch reference's golden (small_o2_*, 2e-5 of
+     max) and at J=11, Q=4, T=16, B=8 against the CPU; the exact
+     PhaseScattering1D on the production fixtures, all 903 pairs against
+     the golden (3e-2 / 8e-2 of max), the 44 / 130 selections against a
+     float64 oracle (rel-L2 5e-4 / 3.3e-2), analyze at B=8 against the
+     CPU; the decimation GEMM against float64 with TF32 off (and, printed
+     only, on); analyze times at B=8 and 32, exact and reduced; then
+     build_dataset at production width (16 records x 8 windows, seed 0),
+     exact fp32 and reduced rate with bf16 products, against a CPU run
+     (kept/skipped, raw fields bit for bit, the first record's
+     coefficients), its windows/s, statistics, a packed store read back,
+     and build_dataset_from_records on two long records (errors == []);
+ 10. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start), and last
      {"ok": true, "device": {...}}.
@@ -122,12 +135,27 @@ FIT_WINDOWS = (128, 32)   # generated training / validation windows
 # decoder heads would see zeros and their check would be vacuous); seed 2's
 # is active.
 INIT_SEED = 2
+# Phase 9 bars (PERF.md gives the measured values): the JAX package's own.
+SCAT_REL_TOL = 2e-5    # scattering, max-abs over max (tests/test_scattering.py)
+PHASE_L2_TOL = 1e-4    # selected phase family between fp32 runs, rel-L2
+CROSS_L2_TOL = 5e-2    # cross family between fp32 runs (chaotic in fp32)
+GOLDEN_TOL = {"prod_phase": 3e-2, "prod_cross": 8e-2}   # tests/test_phase.py
+ORACLE_PHASE_TOL, ORACLE_CROSS_TOL = 5e-4, 3.3e-2   # vs the float64 oracle
+ETL_RECORDS, ETL_WINDOWS = 16, 8   # build-data --records 16 --windows 8
 OUT_KEYS = ("z", "linear_output", "mu_pr", "logvar_pr", "mu_x", "mu_prior",
             "logvar_prior", "mu_post", "logvar_post")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def cuda_time_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -420,14 +448,13 @@ def check_kernels(device, S=300, H=64):
 
 
 def serve(device):
-    from vae_teb_tpu_torch import (InferenceServer, PhaseScattering1D,
-                                   SeqVaeTeb, init_parameters)
+    from vae_teb_tpu_torch import (InferenceServer, SeqVaeTeb,
+                                   init_parameters, production_frontend)
     from vae_teb_tpu_torch.kernels import wavefront_fwd, wavefront_fwd_plain
 
     t0 = time.perf_counter()
     model = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
-    server = InferenceServer(model, PhaseScattering1D(11, 4, 16, N,
-                                                      device=device), device)
+    server = InferenceServer(model, production_frontend(device), device)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"serving set-up (init {n_params} params, frontend plan): "
         f"{time.perf_counter() - t0:.2f} s")
@@ -505,9 +532,9 @@ def check_against_cpu(server, x):
     coefficients at the frontend's own bars, then the model on identical
     coefficients to 1e-4 of max."""
     import copy
-    from vae_teb_tpu_torch import InferenceServer, PhaseScattering1D
+    from vae_teb_tpu_torch import InferenceServer, production_frontend
     cpu = InferenceServer(copy.deepcopy(server.model).cpu(),
-                          PhaseScattering1D(11, 4, 16, N), "cpu")
+                          production_frontend("cpu"), "cpu")
     coeff_gpu = [c.cpu() for c in server.coefficients(x[0], x[1])]
     coeff_cpu = cpu.coefficients(x[0].cpu(), x[1].cpu())
     st_g, ph_g, cr_g = coeff_gpu
@@ -614,9 +641,9 @@ def train_loop(trainer, frontend, batch_of, fields, beta, label):
 def train(device):
     """The training phases; returns the main path's launch counts."""
     import copy
-    from vae_teb_tpu_torch import (PhaseScattering1D, SeqVaeTeb, Trainer,
-                                   TrainerConfig, WindowFrontend,
-                                   init_parameters)
+    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
+                                   WindowFrontend, init_parameters,
+                                   production_frontend)
     from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
                                            wavefront_fwd, wavefront_fwd_plain)
 
@@ -624,7 +651,7 @@ def train(device):
     model = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
     cfg = TrainerConfig()
     trainer = Trainer(model, cfg, device)
-    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    frontend = WindowFrontend(production_frontend(device))
     log(f"training set-up (init, optimizer, frontend plan): "
         f"{time.perf_counter() - t0:.2f} s; TrainerConfig {cfg}")
     gen = torch.Generator(device=device).manual_seed(5)
@@ -748,10 +775,10 @@ def bf16_forward(device):
     against the CPU's plain path in the same policy. Returns the kernel
     entries launched by the bf16 forward."""
     import copy
-    from vae_teb_tpu_torch import (PhaseScattering1D, SeqVaeTeb,
-                                   WindowFrontend, init_parameters)
+    from vae_teb_tpu_torch import (SeqVaeTeb, WindowFrontend,
+                                   init_parameters, production_frontend)
     from vae_teb_tpu_torch.kernels import wavefront_fwd
-    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    frontend = WindowFrontend(production_frontend(device))
     gen = torch.Generator(device=device).manual_seed(8)
     x = torch.randn((2, 32, N), generator=gen, device=device)
     coeffs = frontend(x[0], x[1])
@@ -809,9 +836,9 @@ def train_bf16(device, fp32_times):
     against the CPU in the same policy. Returns the kernel entries launched
     by the training steps."""
     import copy
-    from vae_teb_tpu_torch import (PhaseScattering1D, SeqVaeTeb, Trainer,
-                                   TrainerConfig, WindowFrontend,
-                                   init_parameters)
+    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
+                                   WindowFrontend, init_parameters,
+                                   production_frontend)
     from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
                                            wavefront_fwd)
     cfg = TrainerConfig(precision="bf16", moment_dtype="bf16")
@@ -819,7 +846,7 @@ def train_bf16(device, fp32_times):
     model.load_state_dict(init_parameters(SeqVaeTeb(), seed=INIT_SEED)
                           .state_dict())
     trainer = Trainer(model, cfg, device)
-    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    frontend = WindowFrontend(production_frontend(device))
     gen = torch.Generator(device=device).manual_seed(5)
     raw_len = model.decoder.raw_len
 
@@ -955,7 +982,7 @@ def fit_phase(device):
     import json
     import os
     import tempfile
-    from vae_teb_tpu_torch import PhaseScattering1D, Trainer, WindowFrontend
+    from vae_teb_tpu_torch import Trainer, WindowFrontend, production_frontend
     from vae_teb_tpu_torch.cli import run_training
     from vae_teb_tpu_torch.data import PackedWindowStore
     from vae_teb_tpu_torch.kernels import wavefront_bwd, wavefront_fwd
@@ -964,7 +991,7 @@ def fit_phase(device):
                                          TrainerConfig)
     from vae_teb_tpu_torch.utils import setup_logging
     setup_logging(capture_root=False)
-    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    frontend = WindowFrontend(production_frontend(device))
     gen = torch.Generator(device=device).manual_seed(9)
 
     def windows(n):
@@ -1100,6 +1127,240 @@ def fit_phase(device):
     return launched
 
 
+def fp64_phase_oracle(sc, x64, idx, cross):
+    """Float64 NumPy oracle of the exact accelerated-correlation chain (pad
+    -> band -> principal-branch acceleration -> conjugate product -> phi
+    low-pass -> decimate) for the pairs `idx` of the port's frontend `sc`
+    on windows x64 (B, 2, N): channel 0 accelerated, against channel 1
+    (cross) or itself. A copy of the JAX suite's oracle
+    (tests/test_phase.py::_fp64_phase_oracle)."""
+    from vae_teb_tpu_torch.ops.scattering import reflect_pad_indices
+    N, pl, dec = sc.N, sc.pad_left, sc.decimation
+    psi = np.asarray(sc.fb.psi1, np.float64)
+    phi = np.asarray(sc.fb.phi_levels[0], np.float64)
+    pad = reflect_pad_indices(N, sc.pad_left, sc.pad_right)
+
+    def bands(sig, rows):
+        spec = np.fft.fft(sig[..., pad])
+        return np.fft.ifft(spec[:, None, :] * psi[rows])[..., pl:pl + N]
+
+    idx = list(idx)
+    pw = np.asarray(sc.pairs.powers[idx], np.float64)
+    zi = bands(x64[:, 0], sc.pairs.i_idx[idx])
+    zj = bands(x64[:, 1] if cross else x64[:, 0], sc.pairs.j_idx[idx])
+    a = np.abs(zi) * np.exp(1j * pw[None, :, None] * np.angle(zi))
+    spec = np.fft.fft((a * np.conj(zj))[..., pad])
+    keep = sc.N_padded // dec
+    s = np.fft.ifft(spec[..., :keep] * phi[:keep]).real
+    start = pl // dec
+    return s[..., start:min(start + N // dec, keep)]
+
+
+def frontend_etl_phase(device):
+    """The exact frontend, order-2 scattering and the dataset ETL on the
+    card (phase 9). Returns the numbers PERF.md reports."""
+    import os
+    import tempfile
+    from vae_teb_tpu_torch.data import (DatasetStatsCalculator,
+                                        PackedWindowStore, build_dataset,
+                                        build_dataset_from_records,
+                                        synthetic_fhr_up, synthetic_records)
+    from vae_teb_tpu_torch.ops import PhaseScattering1D, Scattering1D
+    cpu = torch.device("cpu")
+    failed, report = [], {}
+    rel_l2 = lambda a, b: float(np.linalg.norm(np.float64(a) - b)
+                                / np.linalg.norm(np.float64(b)))
+    max_rel = lambda a, b: float(np.abs(np.float64(a) - b).max()
+                                 / np.abs(np.float64(b)).max())
+    golden = lambda name: np.load(f"tests/golden/{name}.npz")
+
+    def check(label, value, bar):
+        log(f"frontend: {label} {value!r} (bar {bar})")
+        if not value <= bar:
+            failed.append(f"{label} {value!r} > {bar}")
+
+    def families(out, keys=("scattering", "phase_corr", "cross_phase_corr")):
+        return [out[k].cpu().numpy() for k in keys if k in out]
+
+    def card_vs_cpu(label, got, want):
+        """scattering max-abs over max 2e-5; phase rel-L2 1e-4; cross
+        rel-L2 5e-2 (non-integer powers: chaotic in fp32)."""
+        for name, g, w, (fn, bar) in zip(
+                ("scattering", "phase", "cross"), got, want,
+                ((max_rel, SCAT_REL_TOL), (rel_l2, PHASE_L2_TOL),
+                 (rel_l2, CROSS_L2_TOL))):
+            check(f"{label} {name} card vs CPU", fn(g, w), bar)
+
+    # (a) order-2 scattering: the torch reference's golden, then the
+    # production geometry against the port's CPU run
+    for name in ("small_o2_phase", "small_o2_cross"):
+        g = golden(name)
+        sc = Scattering1D(int(g["J"]), int(g["Q"]), int(g["T"]), int(g["N"]),
+                          max_order=2, device=device)
+        x = g["x"][:, 0] if g["x"].ndim == 3 else g["x"]
+        got = sc(torch.as_tensor(x, device=device)).cpu().numpy()
+        check(f"order-2 scattering vs golden {name}, max-abs/max",
+              max_rel(got, g["scattering"]), SCAT_REL_TOL)
+    fhr, up = synthetic_fhr_up(N, np.random.default_rng(11), 8)
+    o2 = [Scattering1D(11, 4, 16, N, max_order=2, device=d)
+          for d in (device, cpu)]
+    got = o2[0](torch.as_tensor(fhr, device=device))
+    want = o2[1](torch.as_tensor(fhr)).numpy()
+    check(f"order-2 scattering J=11 Q=4 T=16 B=8 ({o2[0].output_channels} "
+          f"channels) card vs CPU, max-abs/max",
+          max_rel(got.cpu().numpy(), want), SCAT_REL_TOL)
+    report["order2_ms_b8"] = cuda_time_ms(
+        lambda: o2[0](torch.as_tensor(fhr, device=device)))
+
+    # (b) the exact frontend on the reference's production fixtures
+    exact = PhaseScattering1D(11, 4, 16, N, device=device)
+    for name, kw, key in (
+            ("prod_phase", dict(compute_phase=True), "phase_corr"),
+            ("prod_cross", dict(compute_phase=False, compute_cross_phase=True),
+             "cross_phase_corr")):
+        g = golden(name)
+        out = exact(torch.as_tensor(g["x"], device=device), **kw)
+        check(f"exact all {out[key].shape[1]} pairs vs golden {name}, "
+              f"max-abs/max", max_rel(out[key].cpu().numpy(), g[key]),
+              GOLDEN_TOL[name])
+    sel = exact.optimal_fhr_selection()
+    p_idx = sel["phase_selection"]["selected_indices"]
+    c_idx = sel["cross_selection"]["selected_indices"]
+    x64 = golden("prod_cross")["x"].astype(np.float64)
+    xt = torch.as_tensor(x64.astype(np.float32), device=device)
+    out = exact.analyze(xt[:, 0], xt[:, 1])
+    report["oracle_phase"] = rel_l2(out["phase_corr"].cpu().numpy(),
+                                    fp64_phase_oracle(exact, x64, p_idx,
+                                                      False))
+    report["oracle_cross"] = rel_l2(out["cross_phase_corr"].cpu().numpy(),
+                                    fp64_phase_oracle(exact, x64, c_idx,
+                                                      True))
+    check(f"exact {len(p_idx)} phase pairs vs float64 oracle, rel-L2",
+          report["oracle_phase"], ORACLE_PHASE_TOL)
+    check(f"exact {len(c_idx)} cross pairs vs float64 oracle, rel-L2 (the "
+          f"torch reference's own distance is 3.3e-2)",
+          report["oracle_cross"], ORACLE_CROSS_TOL)
+
+    exact_cpu = PhaseScattering1D(11, 4, 16, N)
+    fhr_t, up_t = (torch.as_tensor(a, device=device) for a in (fhr, up))
+    card_vs_cpu("exact analyze B=8", families(exact.analyze(fhr_t, up_t)),
+                families(exact_cpu.analyze(torch.as_tensor(fhr),
+                                           torch.as_tensor(up))))
+    # the dense decimation GEMM must run in true fp32 (TF32 off); show what
+    # TF32 would cost against a float64 product
+    gen = torch.Generator(device=device).manual_seed(3)
+    cr, ci = (torch.randn((8, 174, N), generator=gen, device=device)
+              for _ in range(2))
+    lt = exact.phi_lt_src()
+    ref = (cr.double().cpu().numpy() @ lt.real
+           - ci.double().cpu().numpy() @ lt.imag)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    errs = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            errs[flag] = max_rel(exact._phi_decimate(cr, ci).cpu().numpy(),
+                                 ref)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"frontend: decimation GEMM (8x174x{N} -> 360) vs float64, "
+        f"max-abs/max: TF32 off {errs[False]!r}, TF32 on {errs[True]!r}")
+    check("decimation GEMM in fp32 vs float64, max-abs/max", errs[False],
+          1e-5)
+    reduced = PhaseScattering1D(11, 4, 16, N, max_order=1, reduced_rate=True,
+                                device=device)
+    reduced.plan(p_idx, c_idx)
+    for b in (8, 32):
+        xb = torch.randn((2, b, N), generator=gen, device=device)
+        for label, sc in (("exact", exact), ("reduced", reduced)):
+            report[f"{label}_analyze_ms_b{b}"] = cuda_time_ms(
+                lambda: sc.analyze(xb[0], xb[1]))
+    log(f"frontend: analyze ms on {card()} (CUDA events, median of "
+        f"{TIMED_RUNS}): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                       report.items() if "analyze" in k)
+        + f"; order 2 B=8 {report['order2_ms_b8']:.3f}")
+
+    # (c) the dataset ETL at production width: build-data's recipe for the
+    # 300-step parity run (16 records x 8 windows, seed 0), exact fp32 (the
+    # default) and reduced rate with bf16 products, collected through
+    # `write` (this machine has no h5py) into a packed store
+    recipe = dict(n_records=ETL_RECORDS, windows_per_record=ETL_WINDOWS,
+                  len_signal=N, seed=0)
+    modes = {"exact": {}, "reduced_bf16": dict(
+        max_order=1, reduced_rate=True, correlation_dtype=torch.bfloat16)}
+    coeff_keys = ("fhr_st", "fhr_ph", "fhr_up_ph")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_scratch")
+    os.makedirs(root, exist_ok=True)
+    for mode, kw in modes.items():
+        on_cpu, on_card = [], []
+        want_res = build_dataset(
+            None, **recipe, write=on_cpu.append,
+            transform=PhaseScattering1D(11, 4, 16, N, **kw))
+        sc = PhaseScattering1D(11, 4, 16, N, **kw, device=device)
+        build_dataset(None, **dict(recipe, n_records=1), transform=sc,
+                      write=lambda b: None)          # plans, first launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = build_dataset(None, **recipe, transform=sc, write=on_card.append)
+        dt = time.perf_counter() - t0
+        report[f"etl_{mode}_windows_per_s"] = recipe["n_records"] * recipe[
+            "windows_per_record"] / dt
+        log(f"etl {mode}: {res} in {dt:.3f} s, "
+            f"{report[f'etl_{mode}_windows_per_s']:.1f} windows/s on "
+            f"{card()} (CPU run: {want_res})")
+        if res != want_res:
+            failed.append(f"etl {mode} kept/skipped {res}, CPU {want_res}")
+        got, want = (
+            {k: np.concatenate([np.asarray(b[k]) for b in batches])
+             for k in on_cpu[0]} for batches in (on_card, on_cpu))
+        raw_equal = all(np.array_equal(got[k], want[k]) for k in want
+                        if k not in coeff_keys)
+        log(f"etl {mode}: raw fields, weights, epochs, labels and guids "
+            f"bit-equal to the CPU's: {raw_equal}")
+        if not raw_equal:
+            failed.append(f"etl {mode}: raw fields differ from the CPU's")
+        first = slice(0, ETL_WINDOWS)
+        card_vs_cpu(f"etl {mode} record 0",
+                    [got[k][first] for k in coeff_keys],
+                    [want[k][first] for k in coeff_keys])
+        calc = DatasetStatsCalculator(trim_minutes=2.0)
+        for k in ("fhr", "up") + coeff_keys:
+            calc.update(k, got[k])
+        stats = calc.finalize()
+        fields = ("fhr", "target", "weight") + coeff_keys
+        with tempfile.TemporaryDirectory(dir=root) as tmp:
+            store = PackedWindowStore.build(
+                _Windows({k: got[k] for k in fields}), tmp)
+            back = store.read_batch(range(4))
+            same = all(np.array_equal(back[k], got[k][:4]) for k in fields)
+            n_store = len(store)
+        finite = all(np.isfinite(got[k]).all() for k in coeff_keys) and all(
+            np.isfinite(st.mean).all() and np.isfinite(st.variance).all()
+            for st in stats.values())
+        log(f"etl {mode}: packed {n_store} windows, a batch read back equal: "
+            f"{same}; statistics finite: {finite} (fhr_st channel 1 mean "
+            f"{float(stats['fhr_st'].mean[1])!r})")
+        if not (same and finite and n_store == res["kept"]):
+            failed.append(f"etl {mode}: store of {n_store}, read back "
+                          f"{same}, finite {finite}")
+
+    # long records: windowed with overlap, per-record isolation
+    records = list(synthetic_records(2, 3 * N, seed=0))
+    res = [build_dataset_from_records(None, records, transform=t,
+                                      write=lambda b: None)
+           for t in (PhaseScattering1D(11, 4, 16, N, device=device),
+                     exact_cpu)]
+    log(f"etl records (2 x {3 * N} samples): card {res[0]}, CPU {res[1]}")
+    if res[0]["errors"] or res[0] != res[1]:
+        failed.append(f"etl records: card {res[0]}, CPU {res[1]}")
+    log(f"frontend/ETL numbers: {json.dumps(report)}")
+    if failed:
+        raise AssertionError("frontend/ETL checks failed:\n"
+                             + "\n".join(failed))
+    return report
+
+
 def main(argv) -> int:
     kernels_only = argv == ["--kernels"]
     if argv and not kernels_only:
@@ -1136,6 +1397,7 @@ def main(argv) -> int:
     bf16 = {"bf16_forward": bf16_forward(device),   # per phase
             "bf16_train": train_bf16(device, fp32_times),
             "fit": fit_phase(device)}
+    frontend_etl_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -1145,11 +1407,7 @@ def main(argv) -> int:
                ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches, "bwd",
                 "wavefront_bwd_bf16"))
     # each kernel's numbers at the main path's training batch (B=32, fp32)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
+    print(card())
     rows = []
     for name, src, line, n, key, bf16_entry in entries:
         err, ms, plain_ms, library_ms, (bound_ms, bound_by) = kernels[

@@ -68,7 +68,7 @@ def test_builders_match_jax(cfg):
     for field in fb_j.__dataclass_fields__:
         _assert_same(getattr(fb_t, field), getattr(fb_j, field), field)
 
-    sc_t = PhaseScattering1D(**cfg)
+    sc_t = PhaseScattering1D(**cfg, max_order=1)
     sc_j = JaxPhase(**cfg, max_order=1)
     assert sc_t.pairs.powers.dtype == np.float32
     for field in ("i_idx", "j_idx", "autoc_idx"):
@@ -106,7 +106,7 @@ def test_compose_reconstruction_matches_dense_product():
 
 
 def _check_plan(cfg):
-    sc_t = PhaseScattering1D(**cfg)
+    sc_t = PhaseScattering1D(**cfg, max_order=1, reduced_rate=True)
     sc_j = JaxPhase(**cfg, max_order=1, reduced_rate=True)
     p_idx, c_idx = _subsets(sc_j)
     plan_t = build_reduced_plan(sc_t, p_idx, c_idx)
@@ -132,7 +132,7 @@ def test_reduced_plan_matches_jax_prod():
 def test_scattering_matches_jax_small():
     x = np.random.default_rng(0).standard_normal((3, SMALL["shape"])).astype(np.float32)
     want = np.asarray(JaxScattering(**SMALL, max_order=1)(jnp.asarray(x)))
-    got = Scattering1D(**SMALL)(torch.as_tensor(x)).numpy()
+    got = Scattering1D(**SMALL, max_order=1)(torch.as_tensor(x)).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() < 2e-5 * np.abs(want).max()
 
@@ -142,7 +142,8 @@ def test_scattering_golden(name, golden_loader):
     """The torch reference's production scattering at the JAX package's
     bar (tests/test_scattering.py)."""
     g = golden_loader(name)
-    sc = Scattering1D(int(g["J"]), int(g["Q"]), int(g["T"]), int(g["N"]))
+    sc = Scattering1D(int(g["J"]), int(g["Q"]), int(g["T"]), int(g["N"]),
+                      max_order=int(g["max_order"]))
     x = g["x"][:, 0, :] if g["x"].ndim == 3 else g["x"]
     got = sc(torch.as_tensor(x, dtype=torch.float32)).numpy()
     ref = g["scattering"]
@@ -170,7 +171,8 @@ def _check_analyze(cfg, corr, tukey_alpha=None):
                         "bf16": (jnp.bfloat16, torch.bfloat16)}[corr]
     sc_j = JaxPhase(**cfg, max_order=1, reduced_rate=True,
                     correlation_dtype=jax_dt, tukey_alpha=tukey_alpha)
-    sc_t = PhaseScattering1D(**cfg, correlation_dtype=torch_dt,
+    sc_t = PhaseScattering1D(**cfg, max_order=1, reduced_rate=True,
+                             correlation_dtype=torch_dt,
                              tukey_alpha=tukey_alpha)
     p_idx, c_idx = _subsets(sc_j)
     x = np.random.default_rng(0).standard_normal((2, 2, cfg["shape"])).astype(np.float32)
@@ -203,7 +205,7 @@ def test_analyze_matches_jax_reduced_prod():
 def test_analyze_defaults_and_phase_only():
     """Default subsets are the optimal selection; without `up` only the
     phase family is computed, equal to its value in the joint call."""
-    sc = PhaseScattering1D(**SMALL)
+    sc = PhaseScattering1D(**SMALL, max_order=1, reduced_rate=True)
     x = torch.as_tensor(np.random.default_rng(1).standard_normal(
         (2, 2, SMALL["shape"])).astype(np.float32))
     both = sc.analyze(x[:, 0], x[:, 1])

@@ -73,7 +73,8 @@ def slice_pair():
 
     model = SeqVaeTeb(**dims, **LSTM, seq_len=S)
     load_flax_variables(model, jax.tree_util.tree_map(np.asarray, variables))
-    server = InferenceServer(model, PhaseScattering1D(**FRONTEND), "cpu")
+    server = InferenceServer(model, PhaseScattering1D(
+        **FRONTEND, max_order=1, reduced_rate=True), "cpu")
     return ({k: np.asarray(v) for k, v in want.items()}, np.asarray(te),
             [np.array(c) for c in coeffs], server, x)
 

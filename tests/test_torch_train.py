@@ -531,7 +531,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(model, TrainerConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        InferenceServer(model, PhaseScattering1D(6, 2, 8, 1024))
+        InferenceServer(model, PhaseScattering1D(6, 2, 8, 1024, max_order=1,
+                                                 reduced_rate=True))
     trainer = Trainer(model, TrainerConfig(), device="cpu")
     assert trainer.device == torch.device("cpu")
     assert all(p.device.type == "cpu" for p in trainer.model.parameters())

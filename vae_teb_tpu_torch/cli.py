@@ -1,11 +1,18 @@
-"""Command-line entry point of the port: train.
+"""Command-line entry point of the port: train, build-data, stats, pack-data.
 
     python -m vae_teb_tpu_torch.cli train --config configs/default.yaml \
         [--root DIR] [--resume [CKPT_DIR]] [--device-normalize] [--device cpu]
+    python -m vae_teb_tpu_torch.cli build-data --out data.h5 \
+        [--records 16 --windows 8 --seed 0] [--stats-out stats.h5] [--device cpu]
+    python -m vae_teb_tpu_torch.cli stats --data data.h5 --out stats.h5
+    python -m vae_teb_tpu_torch.cli pack-data --data data.h5 --out DIR \
+        [--stats stats.h5 | --raw]
 
-Port of the `train` subcommand of `vae_teb_tpu.cli`. It runs on the CUDA
-card unless `--device` names another. `test`, `export`, `build-data`,
-`stats` and `pack-data` wait for their slices of the port.
+Port of the `train`, `build-data`, `stats` and `pack-data` subcommands of
+`vae_teb_tpu.cli`, with the same flags and defaults. `train` and
+`build-data` run on the CUDA card unless `--device` names another; `stats`
+and `pack-data` are host passes over HDF5 files (h5py). `test` and
+`export` wait for their slices of the port.
 
 `cmd_train` reads the YAML config (and, with --device-normalize, the
 statistics file) and calls `run_training`, which a program may call
@@ -170,6 +177,75 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_build_data(args) -> int:
+    """Synthetic dataset through the frontend on `--device` (the card by
+    default): the exact fp32 transform unless --reduced-frontend or
+    --bf16-frontend; optionally its statistics file. Exits 1 when a
+    record failed (--record-len mode reports it and goes on)."""
+    from .data import (DatasetStatsCalculator, build_dataset,
+                       build_dataset_from_records, synthetic_records)
+    device = resolve_device(args.device)
+    transform = None
+    if args.bf16_frontend or args.reduced_frontend:
+        import torch
+        from .ops import PhaseScattering1D
+        transform = PhaseScattering1D(
+            J=args.J, Q=args.Q, T=args.T, shape=args.len_signal, max_order=1,
+            correlation_dtype=torch.bfloat16 if args.bf16_frontend else None,
+            reduced_rate=args.reduced_frontend, device=device)
+    if args.record_len:
+        # long-record ingest: block each record into overlapping windows
+        res = build_dataset_from_records(
+            args.out,
+            synthetic_records(args.records, args.record_len, seed=args.seed),
+            J=args.J, Q=args.Q, T=args.T, window=args.len_signal,
+            overlap=args.overlap, transform=transform, device=device)
+    else:
+        res = build_dataset(args.out, n_records=args.records,
+                            windows_per_record=args.windows,
+                            len_signal=args.len_signal, seed=args.seed,
+                            J=args.J, Q=args.Q, T=args.T,
+                            transform=transform, device=device)
+    print(f"built {args.out}: {res}")
+    if args.stats_out:
+        calc = DatasetStatsCalculator(trim_minutes=args.trim_minutes)
+        stats = calc.calculate_stats([args.out])
+        calc.save_stats(stats, args.stats_out)
+        print(f"stats written to {args.stats_out}")
+    return 0 if not res.get("errors") else 1
+
+
+def cmd_stats(args) -> int:
+    from .data import DatasetStatsCalculator
+    calc = DatasetStatsCalculator(trim_minutes=args.trim_minutes)
+    stats = calc.calculate_stats(args.data)
+    calc.save_stats(stats, args.out)
+    print(f"stats over {len(args.data)} file(s) written to {args.out}")
+    return 0
+
+
+def cmd_pack_data(args) -> int:
+    """HDF5 dataset(s) -> a memory-mapped packed window store: trimmed,
+    normalized (or, with --raw, raw (C, S) layout for --device-normalize
+    training) fp32 bytes, read per epoch with no per-sample work."""
+    from .data import CombinedHDF5Dataset, PackedWindowStore
+    ds = CombinedHDF5Dataset(
+        args.data, stats_path=args.stats,
+        normalize_fields=() if args.raw else None,
+        trim_minutes=args.trim_minutes, decimation=args.decimation,
+        cache_size=0, raw_layout=args.raw)
+    try:
+        store = PackedWindowStore.build(ds, args.out,
+                                        batch_size=args.batch_size)
+    finally:
+        ds.close()
+    size = sum(os.path.getsize(os.path.join(args.out, f))
+               for f in os.listdir(args.out))
+    print(f"packed {len(store)} windows ({size / 1e6:.0f} MB, fields "
+          f"{','.join(store.fields)}, raw_layout={args.raw}) -> {args.out}")
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(prog="vae_teb_tpu_torch",
                                 description=__doc__.split("\n")[0])
@@ -190,6 +266,58 @@ def main(argv: Optional[list] = None) -> int:
     pt.add_argument("--device", default=None,
                     help="torch device to train on (default: the CUDA card)")
     pt.set_defaults(fn=cmd_train)
+
+    pb = sub.add_parser("build-data", help="build a synthetic dataset")
+    pb.add_argument("--out", required=True)
+    pb.add_argument("--records", type=int, default=16)
+    pb.add_argument("--windows", type=int, default=4)
+    pb.add_argument("--len-signal", type=int, default=5760)
+    pb.add_argument("--record-len", type=int, default=0,
+                    help="generate records of this length and window them "
+                         "into --len-signal windows (0 = one window per "
+                         "record, no blocking)")
+    pb.add_argument("--overlap", type=float, default=0.5,
+                    help="window overlap fraction for --record-len mode")
+    pb.add_argument("--seed", type=int, default=0)
+    pb.add_argument("--J", type=int, default=11)
+    pb.add_argument("--Q", type=int, default=4)
+    pb.add_argument("--T", type=int, default=16)
+    pb.add_argument("--bf16-frontend", action="store_true",
+                    help="bf16 correlation stage in the ETL frontend "
+                         "(throughput mode; default = exact fp32)")
+    pb.add_argument("--reduced-frontend", action="store_true",
+                    help="reduced-rate pair pipeline in the ETL frontend "
+                         "(throughput mode, oracle-bounded error)")
+    pb.add_argument("--stats-out", default=None)
+    pb.add_argument("--trim-minutes", type=float, default=2.0)
+    pb.add_argument("--device", default=None,
+                    help="torch device of the frontend (default: the CUDA "
+                         "card)")
+    pb.set_defaults(fn=cmd_build_data)
+
+    ps = sub.add_parser("stats", help="compute normalization statistics")
+    ps.add_argument("--data", nargs="+", required=True)
+    ps.add_argument("--out", required=True)
+    ps.add_argument("--trim-minutes", type=float, default=None)
+    ps.set_defaults(fn=cmd_stats)
+
+    pp = sub.add_parser("pack-data",
+                        help="materialize HDF5 dataset(s) into a memory-"
+                             "mapped training-ready packed window store")
+    pp.add_argument("--data", nargs="+", required=True,
+                    help="source HDF5 file(s)")
+    pp.add_argument("--out", required=True, help="output directory")
+    pp.add_argument("--stats", default=None,
+                    help="normalization stats file (omit with --raw)")
+    pp.add_argument("--trim-minutes", type=float, default=None)
+    pp.add_argument("--decimation", type=int, default=16)
+    pp.add_argument("--batch-size", type=int, default=64,
+                    help="build streaming batch (bounds peak memory)")
+    pp.add_argument("--raw", action="store_true",
+                    help="pack raw (C, S) un-normalized bytes for "
+                         "--device-normalize training")
+    pp.set_defaults(fn=cmd_pack_data)
+
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -105,15 +105,16 @@ def _compose_reconstruction(lt_src: np.ndarray, n_padded: int,
 
 
 def build_reduced_plan(sc, phase_subset: Optional[Sequence[int]],
-                       cross_subset: Optional[Sequence[int]]) -> ReducedPlan:
+                       cross_subset: Optional[Sequence[int]],
+                       thr: float = SUPPORT_THRESHOLD) -> ReducedPlan:
     """Static plan for `apply_reduced`. `sc` is the PhaseScattering1D
-    instance (filters, pair table, padding and decimation geometry)."""
+    instance (filters, pair table, padding and decimation geometry); `thr`
+    the relative amplitude that bounds each filter's support."""
     n_padded = sc.N_padded
     psi = np.asarray(sc.fb.psi1, np.float64)
     phi = np.asarray(sc.fb.phi_levels[0], np.float64)
     xi = sc.center_freqs
     pairs = sc.pairs
-    thr = SUPPORT_THRESHOLD
 
     centers = np.asarray(np.rint(xi.astype(np.float64) * n_padded), np.int64)
     sup = [_wrapped_support(psi[b], int(centers[b]), thr)

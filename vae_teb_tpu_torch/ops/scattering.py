@@ -1,11 +1,11 @@
-"""Averaged 1-D wavelet scattering transform (orders 0 and 1) in PyTorch.
+"""Averaged 1-D wavelet scattering transform (orders 0, 1 and 2) in PyTorch.
 
 Port of `vae_teb_tpu.ops.scattering`. The JAX package carries complex
 spectra as split (re, im) float pairs and runs its DFTs as matmuls; here
 spectra are complex64 tensors and the transforms are `torch.fft` calls.
-The filter bank, the grouping of first-order filters by their dyadic
-subsampling factor, and the dense second-stage low-pass operators are the
-same NumPy builds.
+The filter bank, the grouping of filters by their dyadic subsampling
+factors (first order by k1, second order by (k1, k2)), and the dense
+second-stage low-pass operators are the same NumPy builds.
 
 Numerical semantics (kymatio's scattering1d torch backend):
   - pad: reflect, chained for pads longer than the signal
@@ -13,9 +13,6 @@ Numerical semantics (kymatio's scattering1d torch backend):
   - modulus: |z|
   - FFTs: full length, 'backward' norm
   - unpad: slice [ind_start, ind_end)
-
-Only first-order scattering without oversampling is ported: the serving
-path never computes order 2.
 """
 
 from __future__ import annotations
@@ -116,56 +113,118 @@ def tukey_window(n: int, alpha: Optional[float]) -> np.ndarray:
 
 
 class Scattering1D:
-    """Averaged first-order 1-D scattering transform.
+    """Averaged 1-D scattering transform.
 
     Construction builds the NumPy filter bank and moves its constants to
     `device`; calling the instance returns a channel-stacked
-    (..., 1 + C1, N_out) float32 tensor ordered [order0, order1...].
+    (..., 1 + C1 [+ C2], N_out) float32 tensor ordered
+    [order0, order1..., order2...], as the JAX package's.
     """
 
-    def __init__(self, J: int, Q: int, T: int, shape: int,
+    def __init__(self, J: int, Q: int, T: int, shape: int, max_order: int = 2,
+                 oversampling: int = 0,
                  filter_bank: Optional[FilterBank] = None,
                  device: Optional[torch.device] = None):
         self.J, self.Q, self.T, self.N = J, Q, T, int(shape)
+        self.max_order = max_order
+        self.oversampling = oversampling
         fb = filter_bank or build_filter_bank(J, Q, T, self.N)
         self.fb = fb
-        self.log2_T = fb.log2_T
-        self.n_out = int(fb.ind_end[self.log2_T] - fb.ind_start[self.log2_T])
+        self.log2_T = log2_T = fb.log2_T
+        self.k0 = max(log2_T - oversampling, 0)
+        self.n_out = int(fb.ind_end[self.k0] - fb.ind_start[self.k0])
         self.pad_left, self.pad_right = fb.pad_left, fb.pad_right
         self.ind_start, self.ind_end = fb.ind_start, fb.ind_end
+        t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
 
         # group first-order filters by their subsampling factor k1, so every
         # group's band signals share one static length
-        k1_all = np.maximum(np.minimum(fb.psi1_j, self.log2_T), 0)
-        self._groups1 = []   # (k1, filter-row index tensor)
-        rows_all = []
-        for k1 in sorted(set(int(k) for k in k1_all)):
-            rows = np.where(k1_all == k1)[0]
-            rows_all.append(rows)
-            self._groups1.append((k1, torch.as_tensor(rows, device=device)))
-        self._order1_perm = torch.as_tensor(
-            np.argsort(np.concatenate(rows_all)), device=device)
+        k1_all = np.maximum(
+            np.minimum(fb.psi1_j - oversampling, log2_T - oversampling), 0)
+        groups1 = [(k1, np.where(k1_all == k1)[0])
+                   for k1 in sorted(set(int(k) for k in k1_all))]
+        self._groups1 = [(k1, t(rows)) for k1, rows in groups1]
+        self._order1_perm = t(np.argsort(
+            np.concatenate([rows for _, rows in groups1])))
 
-        self.psi1_f = torch.as_tensor(fb.psi1, dtype=torch.float32,
-                                      device=device)
-        self.phi0_f = torch.as_tensor(fb.phi_levels[0], dtype=torch.float32,
-                                      device=device)
-        # second stage per band resolution k1: modulus time signal ->
-        # smoothed, decimated, unpadded output, as one dense operator
+        # second-order pairs (n1, n2) with j2 > j1, in output order (n1-major),
+        # grouped by (k1, k2); each group gathers its rows of |U1|'s
+        # spectrum within the k1 group and its psi2 filters at level k1
+        self._groups2 = []   # (k1, k2, output rows, rows within k1 group, psi2)
+        self._n2_pairs = 0
+        if max_order >= 2:
+            bykey = {}
+            for n1, j1 in enumerate(fb.psi1_j):
+                k1 = int(k1_all[n1])
+                for n2, j2 in enumerate(fb.psi2_j):
+                    if j2 > j1:
+                        k2 = max(min(int(j2) - k1 - oversampling,
+                                     log2_T - k1 - oversampling), 0)
+                        bykey.setdefault((k1, k2), []).append(
+                            (self._n2_pairs, n1, n2))
+                        self._n2_pairs += 1
+            rows1 = dict(groups1)
+            for (k1, k2), items in sorted(bykey.items()):
+                idxs, n1s, n2s = (np.array(c) for c in zip(*items))
+                pos = np.searchsorted(rows1[k1], n1s)
+                self._groups2.append(
+                    (k1, k2, t(idxs), t(pos),
+                     t(fb.psi2_levels[k1][n2s], torch.float32)))
+
+        self.psi1_f = t(fb.psi1, torch.float32)
+        self.phi0_f = t(fb.phi_levels[0], torch.float32)
+        # second stage per input resolution k_in (every k1 and k1 + k2):
+        # modulus time signal -> smoothed, decimated, unpadded output, as
+        # one dense operator
+        k_ins = set(k1 for k1, _ in groups1)
+        k_ins.update(k1 + k2 for k1, k2, *_ in self._groups2)
         self._lp_time_ops = {}
-        k_tot = self.log2_T
-        for k1, _ in self._groups1:
+        for k_in in sorted(k_ins):
+            k_j = max(log2_T - k_in - oversampling, 0)
+            k_tot = k_in + k_j
             op = _build_lowpass_time_operator(
-                fb.phi_levels[k1], k_tot - k1,
+                fb.phi_levels[k_in], k_j,
                 int(fb.ind_start[k_tot]), int(fb.ind_end[k_tot]))
-            self._lp_time_ops[k1] = torch.as_tensor(op, device=device)
+            self._lp_time_ops[k_in] = t(op)
 
     @property
     def output_channels(self) -> int:
-        return 1 + self.fb.n_order1
+        return 1 + self.fb.n_order1 + self._n2_pairs
+
+    def meta(self):
+        """Coefficient metadata per output channel (order, center frequency,
+        width, dyadic scale, filter indices), NaN-padded to max_order
+        entries, as the JAX package's `meta`."""
+        fb = self.fb
+        order, xi, sigma, j, n = [0], [()], [()], [()], [()]
+        for n1 in range(fb.n_order1):
+            order.append(1)
+            xi.append((float(fb.psi1_xi[n1]),))
+            sigma.append((float(fb.psi1_sigma[n1]),))
+            j.append((int(fb.psi1_j[n1]),))
+            n.append((n1,))
+        if self.max_order >= 2:
+            for n1 in range(fb.n_order1):
+                for n2 in range(len(fb.psi2_j)):
+                    if fb.psi2_j[n2] > fb.psi1_j[n1]:
+                        order.append(2)
+                        xi.append((float(fb.psi1_xi[n1]),
+                                   float(fb.psi2_xi[n2])))
+                        sigma.append((float(fb.psi1_sigma[n1]),
+                                      float(fb.psi2_sigma[n2])))
+                        j.append((int(fb.psi1_j[n1]), int(fb.psi2_j[n2])))
+                        n.append((n1, n2))
+
+        def padded(rows):
+            return np.array([r + (math.nan,) * (self.max_order - len(r))
+                             for r in rows])
+
+        return {"order": np.array(order), "xi": padded(xi),
+                "sigma": padded(sigma), "j": padded(j), "n": padded(n),
+                "key": list(n)}
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., N) real -> (..., 1 + C1, N_out)."""
+        """x: (..., N) real -> (..., 1 + C1 [+ C2], N_out)."""
         batch_shape = x.shape[:-1]
         x = x.reshape(-1, x.shape[-1]).to(torch.float32)
         spec = torch.fft.fft(reflect_pad(x, self.pad_left, self.pad_right))
@@ -177,19 +236,30 @@ class Scattering1D:
         Split out so the phase frontend, which already holds that spectrum,
         does not transform the signal twice."""
         s0 = self._lowpass_order0(spec[:, None, :])
-        s1 = []
+        s1, u1_specs = [], {}
         for k1, rows in self._groups1:
             bands = subsample_fourier(spec[:, None, :] * self.psi1_f[rows],
                                       2 ** k1)
             u1 = torch.fft.ifft(bands).abs()
+            if self._groups2:
+                u1_specs[k1] = torch.fft.fft(u1)   # order 2 reads |U1|'s spectrum
             s1.append(u1 @ self._lp_time_ops[k1])
-        s1 = torch.cat(s1, dim=1)[:, self._order1_perm, :]
-        return torch.cat([s0, s1], dim=1)
+        outs = [s0, torch.cat(s1, dim=1)[:, self._order1_perm, :]]
+        if self._groups2:
+            s2 = spec.real.new_empty((spec.shape[0], self._n2_pairs,
+                                      self.n_out))
+            for k1, k2, idxs, pos, psi2 in self._groups2:
+                bands = subsample_fourier(u1_specs[k1][:, pos, :] * psi2,
+                                          2 ** k2)
+                u2 = torch.fft.ifft(bands).abs()
+                s2[:, idxs, :] = u2 @ self._lp_time_ops[k1 + k2]
+            outs.append(s2)
+        return torch.cat(outs, dim=1)
 
     def _lowpass_order0(self, spec: torch.Tensor) -> torch.Tensor:
-        """Smooth the full-rate spectrum with phi, decimate by 2^log2_T, and
+        """Smooth the full-rate spectrum with phi, decimate by 2^k0, and
         unpad. The smoothed spectrum is Hermitian, so the real part of its
         inverse is the whole signal."""
-        k = self.log2_T
+        k = self.k0
         s = torch.fft.ifft(subsample_fourier(spec * self.phi0_f, 2 ** k)).real
         return s[..., int(self.ind_start[k]):int(self.ind_end[k])]

@@ -150,8 +150,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device visible", file=sys.stderr)
         return 2
-    from . import (PhaseScattering1D, SeqVaeTeb, Trainer, TrainerConfig,
-                   WindowFrontend, init_parameters)
+    from . import (SeqVaeTeb, Trainer, TrainerConfig, WindowFrontend,
+                   init_parameters, production_frontend)
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -159,7 +159,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    frontend = WindowFrontend(PhaseScattering1D(11, 4, 16, N, device=device))
+    frontend = WindowFrontend(production_frontend(device))
     rows, serve_model = [], None
     for precision in args.precision:
         cfg = TrainerConfig(precision=precision, moment_dtype=precision)

@@ -1,9 +1,12 @@
 """Serving: raw FHR/UP windows in, SeqVaeTeb outputs out.
 
 `WindowFrontend` turns raw (B, N) windows into the model's coefficients:
-the phase-scattering frontend (scattering, phase and cross-phase families,
-reduced rate) on the production selections, then TRIM steps (2 minutes)
-trimmed from each end. The training step takes the same coefficients.
+the phase-scattering frontend (scattering, phase and cross-phase families)
+on the production selections, then TRIM steps (2 minutes) trimmed from
+each end. The training step takes the same coefficients.
+`production_frontend` is the frontend serving and training use: the
+reduced-rate pipeline with first-order scattering, set explicitly (the
+frontend's own defaults are the JAX package's: exact rate).
 
 `InferenceServer` holds a model and a `WindowFrontend` on one device, the
 CUDA card unless the caller names another.
@@ -19,7 +22,7 @@ JAX package's fp32 numbers set `torch.backends.cudnn.allow_tf32 = False`.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,6 +31,19 @@ from .models import SeqVaeTeb
 from .ops import PhaseScattering1D
 
 TRIM = 30
+
+
+def production_frontend(device=None,
+                        correlation_dtype: Optional[torch.dtype] = None
+                        ) -> PhaseScattering1D:
+    """The serving and training frontend: J=11, Q=4, T=16 over 5760-sample
+    windows, first-order scattering (43 channels), reduced-rate phase and
+    cross-phase correlations (44 and 130 pairs), fp32 products unless
+    `correlation_dtype`; constants on `device` (default the CPU)."""
+    return PhaseScattering1D(J=11, Q=4, T=16, shape=5760, max_order=1,
+                             reduced_rate=True,
+                             correlation_dtype=correlation_dtype,
+                             device=device)
 
 
 class WindowFrontend:
@@ -39,7 +55,8 @@ class WindowFrontend:
         sel = frontend.optimal_fhr_selection()
         self.phase_subset = sel["phase_selection"]["selected_indices"]
         self.cross_subset = sel["cross_selection"]["selected_indices"]
-        frontend.plan(self.phase_subset, self.cross_subset)   # build once
+        if frontend.reduced_rate:   # build the plan now, not in a request
+            frontend.plan(self.phase_subset, self.cross_subset)
 
     @torch.no_grad()
     def __call__(self, fhr: torch.Tensor, up: torch.Tensor
@@ -55,7 +72,7 @@ class WindowFrontend:
 class InferenceServer:
     """A model and its frontend on one device: the CUDA card unless
     `device` names another (`device="cpu"`). The model moves there; the
-    frontend is built on its own device (`PhaseScattering1D(device=)`),
+    frontend is built on its own device (`production_frontend(device)`),
     which should be the same."""
 
     def __init__(self, model: SeqVaeTeb, frontend: PhaseScattering1D,
