@@ -1204,13 +1204,13 @@ def frontend_etl_phase(device):
     fhr, up = synthetic_fhr_up(N, np.random.default_rng(11), 8)
     o2 = [Scattering1D(11, 4, 16, N, max_order=2, device=d)
           for d in (device, cpu)]
-    got = o2[0](torch.as_tensor(fhr, device=device))
+    fhr_dev = torch.as_tensor(fhr, device=device)
+    got = o2[0](fhr_dev)
     want = o2[1](torch.as_tensor(fhr)).numpy()
     check(f"order-2 scattering J=11 Q=4 T=16 B=8 ({o2[0].output_channels} "
           f"channels) card vs CPU, max-abs/max",
           max_rel(got.cpu().numpy(), want), SCAT_REL_TOL)
-    report["order2_ms_b8"] = cuda_time_ms(
-        lambda: o2[0](torch.as_tensor(fhr, device=device)))
+    report["order2_ms_b8"] = cuda_time_ms(lambda: o2[0](fhr_dev))
 
     # (b) the exact frontend on the reference's production fixtures
     exact = PhaseScattering1D(11, 4, 16, N, device=device)

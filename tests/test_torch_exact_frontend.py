@@ -374,10 +374,16 @@ def test_bf16_correlation_production_shapes(golden_loader):
 
 # -- which frontend the entry points use ---------------------------------------
 
-def test_production_frontend_is_reduced_rate():
-    """Serving and training use the reduced-rate, first-order frontend,
-    set explicitly: the frontend's own defaults are the exact rate."""
+def test_production_frontend_is_reduced_rate(monkeypatch):
+    """Serving and training use the reduced-rate, first-order frontend
+    with fp32 products, set explicitly: the frontend's own defaults are
+    the exact rate. Like the other entry points it runs on the card
+    unless the caller names another device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        production_frontend()
     sc = production_frontend("cpu")
+    assert sc.device == torch.device("cpu")
     assert sc.reduced_rate and sc.scattering.max_order == 1
     assert sc.correlation_dtype is None
     assert (sc.J, sc.Q, sc.T, sc.N) == (11, 4, 16, 5760)

@@ -215,7 +215,6 @@ class PhaseScattering1D:
         self._window = (self._const(tukey_window(self.N, tukey_alpha),
                                     torch.float32)
                         if tukey_alpha else None)
-        self._lt_src: Optional[np.ndarray] = None
         self._decim = None
         self._plans: Dict[Tuple, DevicePlan] = {}
         self._indices: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
@@ -223,13 +222,12 @@ class PhaseScattering1D:
     # -- constants, built once per instance and kept on the device ----------
 
     def phi_lt_src(self) -> np.ndarray:
-        """Complex128 (N, n_out) phi-decimation operator of this geometry."""
-        if self._lt_src is None:
-            self._lt_src = _build_phi_decimation_operator_c128(
-                self.N, self.pad_left, self.pad_right, self.N_padded,
-                np.asarray(self.fb.phi_levels[0], np.float64),
-                self.decimation)
-        return self._lt_src
+        """Complex128 (N, n_out) phi-decimation operator of this geometry,
+        built anew on each call: only plan building and the device
+        operators read it, once each."""
+        return _build_phi_decimation_operator_c128(
+            self.N, self.pad_left, self.pad_right, self.N_padded,
+            np.asarray(self.fb.phi_levels[0], np.float64), self.decimation)
 
     def _decimation_operators(self):
         """((Lr, Li), low-precision (Lr, Li) or None), each (N, n_out)

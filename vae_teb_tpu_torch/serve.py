@@ -22,7 +22,7 @@ JAX package's fp32 numbers set `torch.backends.cudnn.allow_tf32 = False`.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -33,17 +33,14 @@ from .ops import PhaseScattering1D
 TRIM = 30
 
 
-def production_frontend(device=None,
-                        correlation_dtype: Optional[torch.dtype] = None
-                        ) -> PhaseScattering1D:
+def production_frontend(device=None) -> PhaseScattering1D:
     """The serving and training frontend: J=11, Q=4, T=16 over 5760-sample
     windows, first-order scattering (43 channels), reduced-rate phase and
-    cross-phase correlations (44 and 130 pairs), fp32 products unless
-    `correlation_dtype`; constants on `device` (default the CPU)."""
+    cross-phase correlations (44 and 130 pairs), fp32 products; constants
+    on the CUDA card unless `device` names another (`device="cpu"`)."""
     return PhaseScattering1D(J=11, Q=4, T=16, shape=5760, max_order=1,
                              reduced_rate=True,
-                             correlation_dtype=correlation_dtype,
-                             device=device)
+                             device=resolve_device(device))
 
 
 class WindowFrontend:
