@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, training step, training entry
-point, exact frontend and dataset ETL on an NVIDIA GPU.
+point, exact frontend, dataset ETL and evaluation on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
@@ -28,7 +28,11 @@ Phases, each of which raises on failure (exit code 1):
      or bytes over 3.35 TB/s) and the yardstick: cuDNN's LSTM
      (`torch.nn.LSTM`, one per stream) computing the same function, held
      to the kernel's outputs at 1e-4 of max (bf16 storage: 1.6e-2) and
-     timed forward and backward-data;
+     timed forward and backward-data; then the serving forward at B=244
+     (one shift program of phase 10: 25 clusters, more than the card
+     holds at once, so it runs in waves), fp32 and bf16, with its launch
+     plan and waves, rows 0-149 and 150-243 held apart, times, bound and
+     the cuDNN yardstick;
   4. serve raw (B, 5760) FHR/UP windows at B = 1, 8 and 32 through the
      full-width fp32 model (seeded init) and the production reduced-rate
      frontend; check shapes, finiteness, that every forward launched the
@@ -38,8 +42,9 @@ Phases, each of which raises on failure (exit code 1):
      0.5, AdamW lr 1e-4): 10 steps at B=32 and 5 at B=128 on fixed batches
      of raw windows through the frontend on the card; check finite losses,
      a falling B=32 loss, one residual-forward and one backward launch per
-     step; then one B=8 step against the plain recurrence on the card and
-     one B=2 step against the CPU on identical coefficients and noise;
+     step; then, from the seeded weights, one B=8 step against the plain
+     recurrence on the card and one B=2 step against the CPU on identical
+     coefficients and noise;
   6. the bf16 compute policy's forward: full-width SeqVaeTeb(dtype=bf16)
      on the same seeded weights against the fp32 model on the card (B=32,
      eval mode, every output within 0.1 of its max) and against the CPU's
@@ -71,10 +76,23 @@ Phases, each of which raises on failure (exit code 1):
      (kept/skipped, raw fields bit for bit, the first record's
      coefficients), its windows/s, statistics, a packed store read back,
      and build_dataset_from_records on two long records (errors == []);
- 10. print the card's nvidia-smi name and power limit, one JSON line for
+ 10. evaluation (`cli test`'s device work; the card has no matplotlib, so
+     ModelEvaluator is driven directly and no figure is written): 50
+     windows of build-data's recipe through the exact frontend on the card,
+     the trimmed and the raw readers' layouts, the full-width fp32 model;
+     reconstruction_analysis and up_ablation at batch 4, analyze_sample at
+     B=1, latent_interpolation with 8 steps, seqvae_mse_test, then TE vs UP
+     shift (-60..0 s) and vs UP gain (5 gains) in chunks of 4 samples: 13
+     programs of up to 244 rows and 13 of up to 20; checks shapes,
+     finiteness, one serving-kernel launch per encode, shift 0 against gain
+     1.0 and against up_ablation's TE (1e-3 per entry), a 244-row program
+     against the plain recurrence on the card (1e-4 of max), and sample 0's
+     rows against a CPU run (1e-2 per entry; gain 0 at 1e-4 of max); prints
+     CUDA-event times, windows/s and peak memory;
+ 11. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
-     counted from 0 at that phase's start), and last
-     {"ok": true, "device": {...}}.
+     counted from 0 at that phase's start, and the serving forward's
+     launches in phase 10), and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -142,6 +160,18 @@ CROSS_L2_TOL = 5e-2    # cross family between fp32 runs (chaotic in fp32)
 GOLDEN_TOL = {"prod_phase": 3e-2, "prod_cross": 8e-2}   # tests/test_phase.py
 ORACLE_PHASE_TOL, ORACLE_CROSS_TOL = 5e-4, 3.3e-2   # vs the float64 oracle
 ETL_RECORDS, ETL_WINDOWS = 16, 8   # build-data --records 16 --windows 8
+# Phase 10: the 50-sample battery of `cli test` (its default --num-samples),
+# the suite's batch of 4 and recompute chunk of 4 samples x 61 shifts
+EVAL_SAMPLES, EVAL_BATCH, EVAL_CHUNK = 50, 4, 4
+WAVE_BATCH = 4 * 61   # one shift program's rows: the first multi-wave launch
+# TE entries (mean over steps and latent dims) recomputed through the exact
+# frontend in two runs of different batch size on the card, and card
+# against the CPU, relative per entry: the cross family's fp32 phase
+# acceleration is chaotic, so rounding that differs between runs can flip
+# a coefficient sample at the branch cut, which the mean over 300 steps
+# dilutes; card and CPU FFTs round further apart (PERF.md gives the
+# measured values). A misplaced row moves an entry by ~1e-1.
+EVAL_SAME_CARD_TOL, EVAL_CPU_TOL = 1e-3, 1e-2
 OUT_KEYS = ("z", "linear_output", "mu_pr", "logvar_pr", "mu_x", "mu_prior",
             "logvar_prior", "mu_post", "logvar_post")
 
@@ -447,6 +477,57 @@ def check_kernels(device, S=300, H=64):
     return results
 
 
+def check_waves(device, S=300, H=64):
+    """Phase 3's multi-wave case: the serving forward at B = 244 (one shift
+    program of phase 10) in fp32 and bf16 storage, kernel against plain at
+    phase 3's bars, with its launch plan (rows per cluster, clusters, the
+    clusters the card holds at once, waves), CUDA-event times, the bound,
+    and cuDNN's LSTM forward as the yardstick (fp32)."""
+    from vae_teb_tpu_torch.kernels import wavefront_fwd, wavefront_fwd_plain
+    from vae_teb_tpu_torch.kernels.wavefront import (_card_resident,
+                                                     _launch_plan)
+    gen = torch.Generator().manual_seed(6)
+    depths, b = (4, 4), WAVE_BATCH
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        args = recurrence_inputs(gen, b, S, H, depths, dtype, device)
+        K, U = args[2].shape[0], args[5].numel()
+        held_fn = _card_resident(device, dtype, U, H)
+        plan = _launch_plan(b, U, H, dtype, held_fn)
+        held = held_fn(plan.rows, plan.fwd_smem, plan.bwd_smem)
+        waves = -(-plan.clusters // held)
+        got = wavefront_fwd(*args, S)
+        want = wavefront_fwd_plain(*args, S)
+        torch.cuda.synchronize()
+        errs = [max((g[..., rows, :].float() - w[..., rows, :].float()
+                     ).abs().max().item() for g, w in zip(got, want))
+                for rows in (slice(0, 150), slice(150, b))]
+        ms = cuda_time_ms(lambda: wavefront_fwd(*args, S))
+        plain_ms = cuda_time_ms(lambda: wavefront_fwd_plain(*args, S),
+                                PLAIN_RUNS)
+        bnd = bound("fwd", b, K, U, H, int((args[5] > 0).sum()),
+                    args[2].element_size())
+        lib_ms = None
+        if dtype == torch.float32:
+            streams = cudnn_streams(args, depths, S)
+            lib_err = cudnn_check(streams, depths, *got, S)
+            if not lib_err <= LIBRARY_REL_TOL[dtype]:
+                failed.append(f"cuDNN yardstick B={b}: {lib_err}")
+            lib_ms = cudnn_times(streams, gen)[0]
+        name = str(dtype)[6:]
+        log(f"serving forward 4x4 layers B={b} S={S} {name}: plan "
+            f"M={plan.rows} rows per cluster, {plan.clusters} clusters of {U} CTAs, the "
+            f"card holds {held} at once: {waves} waves; max_abs_err rows "
+            f"0-149 {errs[0]!r}, rows 150-{b - 1} {errs[1]!r} (tol {tol}); "
+            f"kernel {ms!r} ms, plain {plain_ms!r} ms, cuDNN {lib_ms!r} ms, "
+            f"bound {bnd[0]!r} ms ({bnd[1]}), {bnd[0] / ms:.4%} of the bound")
+        if not max(errs) <= tol:
+            failed.append(f"serving forward B={b} {name}: {max(errs)} > {tol}")
+    if failed:
+        raise AssertionError("multi-wave forward: " + "; ".join(failed))
+
+
 def serve(device):
     from vae_teb_tpu_torch import (InferenceServer, SeqVaeTeb,
                                    init_parameters, production_frontend)
@@ -651,6 +732,11 @@ def train(device):
     model = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
     cfg = TrainerConfig()
     trainer = Trainer(model, cfg, device)
+    # the step comparisons below start from the seeded weights: the card's
+    # training runs reduce in an order that varies between runs, so the
+    # state they reach varies, and with it which ReLU inputs sit within
+    # rounding of a kink (PERF.md, section 6)
+    seeded = copy.deepcopy(model)
     frontend = WindowFrontend(production_frontend(device))
     log(f"training set-up (init, optimizer, frontend plan): "
         f"{time.perf_counter() - t0:.2f} s; TrainerConfig {cfg}")
@@ -688,10 +774,10 @@ def train(device):
         if not value <= bar:
             failed.append(f"{name}: {value!r} > {bar!r}")
 
-    # one B=8 step from the same weights and noise: the kernels against
-    # (a) the plain reverse wavefront behind the kernel forward, so both
-    # runs share a bit-identical forward, and (b) the plain recurrence for
-    # both directions (autograd differentiates the plain loop), whose
+    # one B=8 step from the seeded weights and the same noise: the kernels
+    # against (a) the plain reverse wavefront behind the kernel forward, so
+    # both runs share a bit-identical forward, and (b) the plain recurrence
+    # for both directions (autograd differentiates the plain loop), whose
     # forward differs by rounding
     fhr, up, y_raw = batch_of(8)
     batch = fields(frontend(fhr, up), y_raw)
@@ -699,7 +785,7 @@ def train(device):
     wavefront_module = sys.modules["vae_teb_tpu_torch.kernels.wavefront"]
     grads = {}
     for name in ("kernels", "plain backward", "plain recurrence"):
-        m = copy.deepcopy(model)
+        m = copy.deepcopy(seeded)
         if name == "plain recurrence":
             m.recurrence = wavefront_fwd_plain
         if name == "plain backward":
@@ -724,7 +810,7 @@ def train(device):
     fhr, up, y_raw = batch_of(2)
     batch = fields(frontend(fhr, up), y_raw)
     eps = torch.randn((2,) + latent, generator=gen, device=device)
-    gpu_model, cpu_model = copy.deepcopy(model), copy.deepcopy(model).cpu()
+    gpu_model, cpu_model = copy.deepcopy(seeded), copy.deepcopy(seeded).cpu()
     before = [p.detach().clone() for p in cpu_model.parameters()]
     m_gpu = Trainer(gpu_model, cfg, device).train_step(batch, beta, eps=eps)
     m_cpu = Trainer(cpu_model, cfg, "cpu").train_step(
@@ -1361,6 +1447,220 @@ def frontend_etl_phase(device):
     return report
 
 
+def eval_phase(device):
+    """`cli test`'s device work on the card (phase 10): the 50-sample
+    battery through ModelEvaluator on the full-width fp32 model and the
+    production exact frontend. Returns the serving forward's launches."""
+    import copy
+    from vae_teb_tpu_torch import SeqVaeTeb, init_parameters
+    from vae_teb_tpu_torch.data import DatasetStatsCalculator, build_dataset
+    from vae_teb_tpu_torch.data.normalize import normalize_field_inplace
+    from vae_teb_tpu_torch.eval import (GAINS_DEFAULT, SHIFT_SECONDS_DEFAULT,
+                                        ModelEvaluator, seqvae_mse_test)
+    from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_fwd,
+                                           wavefront_fwd_plain)
+    from vae_teb_tpu_torch.ops import PhaseScattering1D
+    log("eval: the card has no matplotlib, so this phase drives the suite's "
+        "device work through ModelEvaluator, not run_evaluation_suite, and "
+        "writes no figure")
+    failed, report = [], {}
+    coeff_keys = ("fhr_st", "fhr_ph", "fhr_up_ph")
+
+    def check(label, value, bar):
+        log(f"eval: {label} {value!r} (bar {bar})")
+        if not value <= bar:
+            failed.append(f"{label} {value!r} > {bar}")
+
+    def rel_max(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def rel_entry(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float((np.abs(a - b) / np.abs(b)).max())
+
+    # windows: build-data's recipe through the exact frontend on the card
+    # (7 records x 8 windows, seed 0), statistics over 2-minute trims, and
+    # the two readers of `cli test`: trimmed + normalized, and raw
+    exact = PhaseScattering1D(11, 4, 16, N, device=device)
+    c_idx = exact.optimal_fhr_selection()["cross_selection"][
+        "selected_indices"]
+    parts = []
+    build_dataset(None, n_records=7, windows_per_record=8, len_signal=N,
+                  seed=0, transform=exact, write=parts.append)
+    got = {k: np.concatenate([np.asarray(p[k]) for p in parts])
+           for k in ("fhr", "up") + coeff_keys}
+    if len(got["fhr"]) < EVAL_SAMPLES:
+        raise AssertionError(f"eval: only {len(got['fhr'])} windows kept")
+    calc = DatasetStatsCalculator(trim_minutes=2.0)
+    for k in got:
+        calc.update(k, got[k])
+    stats = calc.finalize()
+    got = {k: v[:EVAL_SAMPLES] for k, v in got.items()}
+    trim_raw, trim_dec = calc.trim_raw, calc.trim_dec
+
+    def norm(k, v):
+        v = normalize_field_inplace(np.array(v, np.float32), k, stats[k],
+                                    channel_axis=-2)
+        return np.ascontiguousarray(np.swapaxes(v, 1, 2)) if v.ndim == 3 else v
+
+    trimmed = {k: norm(k, got[k][:, :, trim_dec:-trim_dec])
+               for k in coeff_keys}
+    trimmed["fhr"] = norm("fhr", got["fhr"][:, trim_raw:-trim_raw])
+    raw = {k: norm(k, got[k]) for k in coeff_keys}
+    raw.update(fhr=got["fhr"], up=got["up"])
+    batches = [{k: v[i:i + EVAL_BATCH] for k, v in trimmed.items()}
+               for i in range(0, EVAL_SAMPLES, EVAL_BATCH)]
+    chunks = [slice(i, i + EVAL_CHUNK)
+              for i in range(0, EVAL_SAMPLES, EVAL_CHUNK)]
+
+    model = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
+    cpu_model = copy.deepcopy(model)
+    ev = ModelEvaluator(model, scattering=exact, stats=stats,
+                        cross_subset=c_idx, device=device)
+    n_shift, n_gain = len(SHIFT_SECONDS_DEFAULT), len(GAINS_DEFAULT)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def recompute(method, variants, sl):
+        return getattr(ev, method)(raw["fhr"][sl], raw["up"][sl],
+                                   raw["fhr_st"][sl], raw["fhr_ph"][sl],
+                                   variants)["te"]
+
+    # the battery, counted from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    wavefront_fwd.launches = wavefront_fwd.residual_launches = 0
+    wavefront_bwd.launches = 0
+    t0 = time.perf_counter()
+    metrics, report["reconstruction_ms"] = timed(
+        lambda: ev.reconstruction_analysis(batches))
+    ablation, report["ablation_ms"] = timed(lambda: ev.up_ablation(batches))
+    s0 = {k: trimmed[k][0] for k in trimmed}
+    s1 = {k: trimmed[k][1] for k in trimmed}
+    analysis, report["analyze_sample_ms"] = timed(lambda: ev.analyze_sample(
+        s0["fhr_st"][None], s0["fhr_ph"][None], s0["fhr_up_ph"][None]))
+    interp, report["latent_interpolation_ms"] = timed(
+        lambda: ev.latent_interpolation(s0, s1, steps=8))
+    battery, report["battery_ms"] = timed(
+        lambda: seqvae_mse_test(model, batches, out_dir=None))
+    shift_te, shift_ms, gain_te, gain_ms = [], [], [], []
+    for sl in chunks:
+        te, ms = timed(lambda: recompute("te_shift_analysis",
+                                         SHIFT_SECONDS_DEFAULT, sl))
+        shift_te.append(te)
+        shift_ms.append(ms)
+    shift_peak = torch.cuda.max_memory_allocated(device)
+    for sl in chunks:
+        te, ms = timed(lambda: recompute("up_gain_sweep", GAINS_DEFAULT, sl))
+        gain_te.append(te)
+        gain_ms.append(ms)
+    torch.cuda.synchronize()
+    report["battery_s"] = time.perf_counter() - t0
+    launches = wavefront_fwd.launches
+    other = wavefront_fwd.residual_launches + wavefront_bwd.launches
+    report["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    shift_te, gain_te = np.concatenate(shift_te), np.concatenate(gain_te)
+
+    # every encode launched the serving kernel, and nothing else ran
+    encodes = 3 * len(batches) + 1 + 2 + len(batches) + 2 * len(chunks)
+    log(f"eval: wavefront_fwd launched {launches} times in {encodes} encodes "
+        f"(training kernels {other})")
+    if launches != encodes or other:
+        failed.append(f"{launches} serving launches in {encodes} encodes, "
+                      f"{other} training launches")
+
+    # shapes and finiteness
+    seq, n_coeff = trimmed["fhr_st"].shape[1], sum(
+        trimmed[k].shape[2] for k in ("fhr_st", "fhr_ph"))
+    want_shapes = {"metrics": (metrics["kld"], (EVAL_SAMPLES,)),
+                   "ablation": (ablation["te_without_up"], (EVAL_SAMPLES,)),
+                   "te_map": (analysis["te_map"], (1, seq, 32)),
+                   "interpolation": (interp["raw_mu"],
+                                     (8, trimmed["fhr"].shape[1])),
+                   "battery": (battery["mse"], (EVAL_SAMPLES, n_coeff)),
+                   "shift": (shift_te, (EVAL_SAMPLES, n_shift)),
+                   "gain": (gain_te, (EVAL_SAMPLES, n_gain))}
+    for name, (arr, shape) in want_shapes.items():
+        if arr.shape != shape or not np.isfinite(arr).all():
+            failed.append(f"{name}: shape {arr.shape} (want {shape}), "
+                          f"finite {np.isfinite(arr).all()}")
+    if not all(np.isfinite(v).all() for d in (metrics, ablation, battery)
+               for v in d.values()):
+        failed.append("non-finite metrics, ablation or battery values")
+
+    rows = [EVAL_CHUNK * n_shift] * (len(chunks) - 1) + [
+        (EVAL_SAMPLES - EVAL_CHUNK * (len(chunks) - 1)) * n_shift]
+    report["shift_ms"], report["gain_ms"] = shift_ms, gain_ms
+    report["shift_windows_per_s"] = sum(rows) / (sum(shift_ms) / 1e3)
+    report["gain_windows_per_s"] = EVAL_SAMPLES * n_gain / (
+        sum(gain_ms) / 1e3)
+    log(f"eval on {card()}: {len(chunks)} shift programs of up to "
+        f"{max(rows)} rows, median {statistics.median(shift_ms)!r} ms, "
+        f"{report['shift_windows_per_s']!r} windows/s; {len(chunks)} gain "
+        f"programs of up to {EVAL_CHUNK * n_gain} rows, median "
+        f"{statistics.median(gain_ms)!r} ms, "
+        f"{report['gain_windows_per_s']!r} windows/s (CUDA events); "
+        f"reconstruction {report['reconstruction_ms']!r} ms, ablation "
+        f"{report['ablation_ms']!r} ms, analyze_sample "
+        f"{report['analyze_sample_ms']!r} ms, latent interpolation "
+        f"{report['latent_interpolation_ms']!r} ms, battery "
+        f"{report['battery_ms']!r} ms; whole battery "
+        f"{report['battery_s']!r} s (host clock); peak device memory "
+        f"{report['peak_bytes']} bytes (through the shift programs "
+        f"{shift_peak})")
+    log(f"eval: mean VAF {metrics['vaf'].mean()!r}, MSE "
+        f"{metrics['mse'].mean()!r}, SNR {metrics['snr_db'].mean()!r} dB, TE "
+        f"{metrics['kld'].mean()!r}; TE with / without UP "
+        f"{ablation['te_with_up'].mean()!r} / "
+        f"{ablation['te_without_up'].mean()!r}")
+
+    # shift 0 is gain 1.0, and the stored coefficients' TE
+    zero = list(SHIFT_SECONDS_DEFAULT).index(0)
+    one = list(GAINS_DEFAULT).index(1.0)
+    check("TE at shift 0 vs gain 1.0, per entry relative",
+          rel_entry(shift_te[:, zero], gain_te[:, one]), EVAL_SAME_CARD_TOL)
+    check("TE at shift 0 vs up_ablation's te_with_up (stored coefficients), "
+          "per entry relative",
+          rel_entry(shift_te[:, zero], ablation["te_with_up"]),
+          EVAL_SAME_CARD_TOL)
+
+    # one B=244 shift program with the plain recurrence on the card
+    model.recurrence = wavefront_fwd_plain
+    try:
+        plain = recompute("te_shift_analysis", SHIFT_SECONDS_DEFAULT,
+                          chunks[0])
+    finally:
+        model.recurrence = wavefront_fwd
+    check(f"TE grid of a {rows[0]}-row shift program, kernel vs plain "
+          f"recurrence, max-abs/max", rel_max(shift_te[:EVAL_CHUNK], plain),
+          SERVE_REL_TOL)
+
+    # one sample's shift and gain rows on the CPU
+    cpu = ModelEvaluator(cpu_model, scattering=PhaseScattering1D(11, 4, 16, N),
+                         stats=stats, cross_subset=c_idx, device="cpu")
+    args = [raw[k][0] for k in ("fhr", "up", "fhr_st", "fhr_ph")]
+    cpu_shift = cpu.te_shift_analysis(*args)["te"]
+    cpu_gain = cpu.up_gain_sweep(*args)["te"]
+    check("sample 0 TE vs shift, card vs CPU, per entry relative",
+          rel_entry(shift_te[0], cpu_shift), EVAL_CPU_TOL)
+    check("sample 0 TE vs gain, card vs CPU, per entry relative",
+          rel_entry(gain_te[0], cpu_gain), EVAL_CPU_TOL)
+    check("sample 0 TE at gain 0, card vs CPU, max-abs/max",
+          rel_max(gain_te[0, :1], cpu_gain[:1]), SERVE_REL_TOL)
+    log(f"eval numbers: {json.dumps(report)}")
+    if failed:
+        raise AssertionError("eval checks failed:\n" + "\n".join(failed))
+    return launches
+
+
 def main(argv) -> int:
     kernels_only = argv == ["--kernels"]
     if argv and not kernels_only:
@@ -1388,28 +1688,31 @@ def main(argv) -> int:
                 log(f"{src}: {line.strip()}")
     if kernels_only:          # phase 3 alone, also on an older checkout
         check_kernels(device)
+        check_waves(device)
         return 0
     check_residency(device)
 
     kernels = check_kernels(device)
+    check_waves(device)
     launches = serve(device)
     (res_launches, bwd_launches), fp32_times = train(device)
     bf16 = {"bf16_forward": bf16_forward(device),   # per phase
             "bf16_train": train_bf16(device, fp32_times),
             "fit": fit_phase(device)}
     frontend_etl_phase(device)
+    eval_launches = eval_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
-                "wavefront_fwd_bf16"),
+                "wavefront_fwd_bf16", eval_launches),
                ("wavefront_fwd_residuals", "wavefront_fwd.cu", 80,
-                res_launches, "fwd_res", "wavefront_fwd_res_bf16"),
+                res_launches, "fwd_res", "wavefront_fwd_res_bf16", 0),
                ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches, "bwd",
-                "wavefront_bwd_bf16"))
+                "wavefront_bwd_bf16", 0))
     # each kernel's numbers at the main path's training batch (B=32, fp32)
     print(card())
     rows = []
-    for name, src, line, n, key, bf16_entry in entries:
+    for name, src, line, n, key, bf16_entry, n_eval in entries:
         err, ms, plain_ms, library_ms, (bound_ms, bound_by) = kernels[
             (key,) + case]
         rows.append({
@@ -1420,7 +1723,8 @@ def main(argv) -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "bf16_launches": {phase: counts.get(bf16_entry, 0)
-                              for phase, counts in bf16.items()}})
+                              for phase, counts in bf16.items()},
+            "eval_launches": n_eval})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

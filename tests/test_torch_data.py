@@ -285,13 +285,14 @@ def test_config_matches_jax(tmp_path):
 
 
 def test_port_imports_without_h5py_yaml_matplotlib():
-    """Every module of the port imports with jax, h5py, yaml and matplotlib
-    blocked (the card machine has none of them), and a packed store plus a
+    """Every module of the port imports with jax, h5py, yaml, matplotlib
+    and sklearn blocked (the card machine has none of them), the evaluation
+    package's too, whose plots then raise; and a packed store plus a
     RunConfig built in code work there."""
     code = (
         "import sys, tempfile, os\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'yaml', "
-        "'matplotlib'):\n"
+        "'matplotlib', 'sklearn'):\n"
         "    sys.modules[name] = None\n"
         "import pkgutil, importlib, numpy as np, vae_teb_tpu_torch\n"
         "for m in pkgutil.walk_packages(vae_teb_tpu_torch.__path__, "
@@ -309,6 +310,13 @@ def test_port_imports_without_h5py_yaml_matplotlib():
         "s = PackedWindowStore.build(A(), os.path.join(d, 's'))\n"
         "assert s.read_batch([2])['fhr'].tolist() == [[8, 9, 10, 11]]\n"
         "assert RunConfig().trainer.precision == 'fp32'\n"
+        "from vae_teb_tpu_torch.eval import ModelEvaluator, plots\n"
+        "try:\n"
+        "    plots.plot_loss_curves({'epoch': [0]}, os.path.join(d, 'l.png'))\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('a plot without matplotlib')\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, cwd=REPO)

@@ -186,7 +186,8 @@ def test_logvar_clip():
 
 
 def test_package_imports_without_jax():
-    """Every module of the port imports with jax, flax and optax blocked."""
+    """Every module of the port, the evaluation package included, imports
+    with jax, flax and optax blocked."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
@@ -195,6 +196,8 @@ def test_package_imports_without_jax():
         "for m in pkgutil.walk_packages(vae_teb_tpu_torch.__path__, "
         "'vae_teb_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from vae_teb_tpu_torch.eval import ModelEvaluator, "
+        "run_evaluation_suite, seqvae_mse_test\n"
         "assert not any(n.split('.')[0] in ('jax', 'flax', 'optax', "
         "'vae_teb_tpu') and sys.modules[n] is not None for n in sys.modules)\n"
         "print('ok')\n")

@@ -1,18 +1,23 @@
-"""Command-line entry point of the port: train, build-data, stats, pack-data.
+"""Command-line entry point of the port: train, test, build-data, stats,
+pack-data.
 
     python -m vae_teb_tpu_torch.cli train --config configs/default.yaml \
-        [--root DIR] [--resume [CKPT_DIR]] [--device-normalize] [--device cpu]
+        [--root DIR] [--resume [CKPT_DIR]] [--device-normalize] \
+        [--plot-every 10] [--device cpu]
+    python -m vae_teb_tpu_torch.cli test --config configs/default.yaml \
+        [--checkpoint DIR] [--num-samples 50] [--with-scattering] \
+        [--bf16-frontend] [--reduced-frontend] [--device cpu]
     python -m vae_teb_tpu_torch.cli build-data --out data.h5 \
         [--records 16 --windows 8 --seed 0] [--stats-out stats.h5] [--device cpu]
     python -m vae_teb_tpu_torch.cli stats --data data.h5 --out stats.h5
     python -m vae_teb_tpu_torch.cli pack-data --data data.h5 --out DIR \
         [--stats stats.h5 | --raw]
 
-Port of the `train`, `build-data`, `stats` and `pack-data` subcommands of
-`vae_teb_tpu.cli`, with the same flags and defaults. `train` and
-`build-data` run on the CUDA card unless `--device` names another; `stats`
-and `pack-data` are host passes over HDF5 files (h5py). `test` and
-`export` wait for their slices of the port.
+Port of the `train`, `test`, `build-data`, `stats` and `pack-data`
+subcommands of `vae_teb_tpu.cli`, with the same flags and defaults. `train`,
+`test` and `build-data` run on the CUDA card unless `--device` names
+another; `stats` and `pack-data` are host passes over HDF5 files (h5py).
+`export` waits for its slice of the port.
 
 `cmd_train` reads the YAML config (and, with --device-normalize, the
 statistics file) and calls `run_training`, which a program may call
@@ -29,28 +34,27 @@ import pickle
 import sys
 from typing import Mapping, Optional, Union
 
+import numpy as np
+
 from .device import resolve_device
 
 
 def make_model(cfg, seq_len: int):
     """SeqVaeTeb from `cfg.model` at the config's precision, for sequences
     of `seq_len` steps (the port sizes the decoder heads at construction).
-    The port builds the JAX defaults only: 32-wide latents, a 16x
-    decimation; every `lstm_schedule` runs the wavefront kernels."""
+    Every `lstm_schedule` runs the wavefront kernels."""
     from .models import SeqVaeTeb
-    from .models.vae_teb import LATENT_DIM, UPSAMPLE
     from .train.config import LSTM_SCHEDULES
     m = cfg.model
-    latents = (m.latent_dim_source, m.latent_dim_target, m.latent_dim_z)
-    if latents != (LATENT_DIM,) * 3 or m.decimation_factor != UPSAMPLE:
-        raise ValueError(f"the port builds latent widths {LATENT_DIM} and "
-                         f"decimation {UPSAMPLE}, got {latents} and "
-                         f"{m.decimation_factor}")
     if m.lstm_schedule not in LSTM_SCHEDULES:
         raise ValueError(f"unknown lstm_schedule {m.lstm_schedule!r}")
     return SeqVaeTeb(input_channels=m.input_channels,
                      n_scattering=m.n_scattering, n_phase=m.n_phase,
-                     seq_len=seq_len, dtype=cfg.trainer.model_dtype())
+                     seq_len=seq_len, dtype=cfg.trainer.model_dtype(),
+                     latent_dim_source=m.latent_dim_source,
+                     latent_dim_target=m.latent_dim_target,
+                     latent_dim_z=m.latent_dim_z,
+                     decimation_factor=m.decimation_factor)
 
 
 def _loaders(cfg, split: str, raw: bool = False):
@@ -60,8 +64,8 @@ def _loaders(cfg, split: str, raw: bool = False):
     layout, no host normalization)."""
     from .data import CombinedHDF5Dataset, PackedWindowStore
     ds_cfg = cfg.dataset
-    paths = {"train": ds_cfg.train_paths,
-             "val": ds_cfg.validation_paths}[split]
+    paths = {"train": ds_cfg.train_paths, "val": ds_cfg.validation_paths,
+             "test": ds_cfg.test_paths}[split]
     if not paths:
         return None
     if len(paths) == 1 and os.path.isdir(paths[0]):
@@ -82,7 +86,8 @@ def _loaders(cfg, split: str, raw: bool = False):
 
 
 def run_training(cfg, device=None, resume: Union[bool, str] = False,
-                 normalize_stats: Optional[Mapping] = None, log=None):
+                 normalize_stats: Optional[Mapping] = None, log=None,
+                 plot_every: int = 10):
     """Train as `cli train` does; returns the Trainer.
 
     Builds the loaders (raw layout when `normalize_stats` is given: the
@@ -90,13 +95,17 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
     `cfg.trainer.precision` with seeded weights (`init_parameters`, seed
     `cfg.trainer.seed`), the trainer, the checkpointer (best
     `cfg.checkpoints.keep` plus the latest, in <run dir>/model_checkpoints)
-    and the callbacks (history pickle, device-memory monitor). `resume`
+    and the callbacks (history pickle, loss curves, device-memory monitor,
+    and every `plot_every` epochs, 0 never, reconstructions of two
+    validation windows; the plots need matplotlib and are logged and
+    skipped without it). `resume`
     (True: this run's checkpoint directory; or a directory) restores the
     latest checkpoint and the history, and continues from the epoch after
     it. Then `Trainer.fit` over cfg.trainer.epochs.
     """
     from .init import init_parameters
-    from .train import (Checkpointer, HistoryCallback, MemoryMonitorCallback,
+    from .train import (Checkpointer, HistoryCallback, LossCurveCallback,
+                        MemoryMonitorCallback, ReconstructionPlotCallback,
                         Trainer)
     from .utils import get_logger
     log = log or get_logger()
@@ -146,7 +155,27 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
                                  drop_last=False)
 
     callbacks = [HistoryCallback(history_path),
+                 LossCurveCallback(os.path.join(run_dir, "train_results",
+                                                "loss_curves.png")),
                  MemoryMonitorCallback(log_fn=log.warning)]
+    if val_ds is not None and len(val_ds) and plot_every > 0:
+        plot_batch = val_ds.read_batch(range(min(2, len(val_ds))))
+        if raw:
+            # the plot callback feeds the model directly: normalize and
+            # transpose to the model's layout on the host once
+            from .data.normalize import normalize_field_inplace
+            for k in ("fhr_st", "fhr_ph", "fhr_up_ph"):
+                v = plot_batch[k].copy()
+                if k in normalize_stats:
+                    v = normalize_field_inplace(v, k, normalize_stats[k],
+                                                channel_axis=-2)
+                plot_batch[k] = np.ascontiguousarray(np.swapaxes(v, 1, 2))
+            if "fhr" in normalize_stats:
+                plot_batch["fhr"] = normalize_field_inplace(
+                    plot_batch["fhr"].copy(), "fhr", normalize_stats["fhr"])
+        callbacks.append(ReconstructionPlotCallback(
+            os.path.join(run_dir, "train_results", "reconstructions"),
+            plot_batch, every=plot_every))
     trainer.fit(train_batches, val_batches if val_ds is not None else None,
                 checkpointer=ckpt, log_fn=log.info, callbacks=callbacks,
                 start_epoch=start_epoch)
@@ -173,7 +202,76 @@ def cmd_train(args) -> int:
     if not cfg.dataset.train_paths:
         log.error("no train_paths configured")
         return 2
-    run_training(cfg, args.device, args.resume, norm_stats, log)
+    run_training(cfg, args.device, args.resume, norm_stats, log,
+                 plot_every=args.plot_every)
+    return 0
+
+
+def cmd_test(args) -> int:
+    """The evaluation suite on the best checkpoint (a fresh seeded model
+    without one) over the test split, else the validation split, into
+    <run dir>/test_results. With --with-scattering the shift and gain
+    analyses recompute the cross-phase coefficients through the production
+    geometry (J=11, Q=4, T=16, 5760 samples) on the device: exact fp32 by
+    default, reduced rate or bf16 products on request."""
+    from .data import CombinedHDF5Dataset, load_stats
+    from .eval import ModelEvaluator, run_evaluation_suite
+    from .init import init_parameters
+    from .ops import PhaseScattering1D
+    from .train import Checkpointer, load_config
+    from .utils import get_logger, setup_logging
+
+    cfg = load_config(args.config, root=args.root)
+    run_dir = cfg.run_dir()
+    out_dir = os.path.join(run_dir, "test_results")
+    setup_logging(os.path.join(out_dir, "test.log"))
+    log = get_logger()
+
+    test_ds = _loaders(cfg, "test") or _loaders(cfg, "val")
+    if test_ds is None:
+        log.error("no test/validation paths configured")
+        return 2
+    device = resolve_device(args.device)
+    seq_len = test_ds.read_batch(range(min(2, len(test_ds))))[
+        "fhr_st"].shape[1]
+    model = init_parameters(make_model(cfg, seq_len), seed=cfg.trainer.seed)
+    ckpt_dir = args.checkpoint or cfg.checkpoints.test_checkpoint_path
+    if ckpt_dir:
+        ckpt = Checkpointer(ckpt_dir, keep=cfg.checkpoints.keep)
+        model.load_state_dict(ckpt.restore(best=True)["model"])
+        log.info("restored best checkpoint from %s", ckpt_dir)
+    else:
+        log.warning("no checkpoint given: evaluating a fresh model")
+
+    scattering = stats = raw_ds = sel_subset = None
+    if args.with_scattering:
+        import torch
+        scattering = PhaseScattering1D(
+            J=11, Q=4, T=16, shape=5760, max_order=1,
+            correlation_dtype=torch.bfloat16 if args.bf16_frontend else None,
+            reduced_rate=args.reduced_frontend, device=device)
+        if cfg.dataset.stat_path:
+            stats = load_stats(cfg.dataset.stat_path)
+        raw_paths = cfg.dataset.test_paths or cfg.dataset.validation_paths
+        raw_ds = CombinedHDF5Dataset(
+            raw_paths, stats_path=cfg.dataset.stat_path,
+            normalize_fields=("fhr_st", "fhr_ph", "fhr_up_ph"),
+            cache_size=0, allow_stats_trim_mismatch=True)
+        sel = scattering.optimal_fhr_selection()
+        sel_subset = sel["cross_selection"]["selected_indices"]
+
+    evaluator = ModelEvaluator(model, scattering=scattering, stats=stats,
+                               cross_subset=sel_subset, device=device)
+    results = run_evaluation_suite(
+        evaluator, test_ds, out_dir, raw_dataset=raw_ds,
+        num_samples=args.num_samples,
+        run_shift_analysis=args.with_scattering,
+        run_gain_sweep=args.with_scattering)
+    log.info("evaluation artifacts in %s", out_dir)
+    m = results["metrics"]
+    log.info("VAF %.4f+-%.4f  MSE %.5f  SNR %.2f dB  TE %.5f",
+             m["vaf"].mean(), m["vaf"].std(), m["mse"].mean(),
+             m["snr_db"].mean(), m["kld"].mean())
     return 0
 
 
@@ -263,9 +361,29 @@ def main(argv: Optional[list] = None) -> int:
                     help="feed raw-layout batches and normalize them on the "
                          "device inside the train step (needs "
                          "dataset.stat_path)")
+    pt.add_argument("--plot-every", type=int, default=10,
+                    help="epochs between val-reconstruction plots "
+                         "(0 disables)")
     pt.add_argument("--device", default=None,
                     help="torch device to train on (default: the CUDA card)")
     pt.set_defaults(fn=cmd_train)
+
+    pe = sub.add_parser("test", help="run the evaluation suite")
+    pe.add_argument("--config", required=True)
+    pe.add_argument("--root", default=None)
+    pe.add_argument("--checkpoint", default=None)
+    pe.add_argument("--num-samples", type=int, default=50)
+    pe.add_argument("--bf16-frontend", action="store_true",
+                    help="bf16 correlation stage in the recompute frontend")
+    pe.add_argument("--reduced-frontend", action="store_true",
+                    help="reduced-rate pair pipeline in the recompute "
+                         "frontend")
+    pe.add_argument("--with-scattering", action="store_true",
+                    help="enable shift/gain analyses (on-device scattering)")
+    pe.add_argument("--device", default=None,
+                    help="torch device to evaluate on (default: the CUDA "
+                         "card)")
+    pe.set_defaults(fn=cmd_test)
 
     pb = sub.add_parser("build-data", help="build a synthetic dataset")
     pb.add_argument("--out", required=True)

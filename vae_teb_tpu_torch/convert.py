@@ -14,8 +14,10 @@ maps by rule:
           w_ih_l, w_hh_l, bias_l unchanged                LSTM: (in, 4H)
                                                           layout, [i,f,g,o]
 
-Conversion fails on any leaf without a counterpart, any counterpart
-without a leaf, and any shape mismatch.
+Every shape comes from the model, so a tree of any configuration converts
+into a port model built with the same fields (latent widths, decimation
+factor, LSTM sizes, channel counts). Conversion fails on any leaf without
+a counterpart, any counterpart without a leaf, and any shape mismatch.
 """
 
 from __future__ import annotations

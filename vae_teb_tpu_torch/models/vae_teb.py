@@ -12,9 +12,11 @@ package's:
                       raw mu/logvar (B, 16*S)
 
 PyTorch modules need their input widths at construction, so the decoder's
-two dense heads are sized from `seq_len` (300 in production: 4800-wide).
-Every latent is LATENT_DIM wide and the decoder upsamples 16x (the JAX
-defaults; no caller sets others). The module's mode is flax's `train`
+two dense heads are sized from `seq_len` times the decimation factor (300
+x 16 in production: 4800-wide). The three latent widths (source, target,
+z) and the decimation factor (a power of two up to 16) are the JAX
+model's fields, with its defaults (LATENT_DIM, UPSAMPLE); `decode(z)` runs
+the decoder alone. The module's mode is flax's `train`
 flag: in training mode (`model.train()`) BatchNorm normalizes with batch
 statistics and updates its running averages; in eval mode it uses the
 running averages. Sampling of z is a separate switch (`deterministic`), as
@@ -28,7 +30,7 @@ it and z formed in it, and the loss functions cast back to float32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -111,7 +113,7 @@ class TargetEncoder(nn.Module):
 
     def __init__(self, lstm_hidden_dim: int = 64, lstm_num_layers: int = 4,
                  n_scattering: int = 43, n_phase: int = 44,
-                 dtype: Dtype = None):
+                 dtype: Dtype = None, latent_dim: int = LATENT_DIM):
         super().__init__()
         H, dt = lstm_hidden_dim, dtype
         self.mlp_scattering = ResidualMLP(
@@ -135,10 +137,10 @@ class TargetEncoder(nn.Module):
         self.lstm_norm = LayerNorm(H, dt)
         self.pre_output = ResidualMLP(H, geometric_schedule(H, 32, 5),
                                       final_activation=True, dtype=dt)
-        self.mu_layer = ResidualMLP(32, geometric_schedule(32, LATENT_DIM, 32),
+        self.mu_layer = ResidualMLP(32, geometric_schedule(32, latent_dim, 32),
                                     final_activation=False, dtype=dt)
         self.logvar_layer = ResidualMLP(
-            32, geometric_schedule(32, 2 * LATENT_DIM, 4),
+            32, geometric_schedule(32, 2 * latent_dim, 4),
             final_activation=False, dtype=dt)
 
     def pre_lstm(self, y_st, y_ph):
@@ -169,7 +171,8 @@ class SourceEncoder(nn.Module):
     (run by SeqVaeTeb.encode between pre_lstm and head)."""
 
     def __init__(self, input_channels: int = 130, lstm_hidden_dim: int = 64,
-                 lstm_num_layers: int = 4, dtype: Dtype = None):
+                 lstm_num_layers: int = 4, dtype: Dtype = None,
+                 latent_dim: int = LATENT_DIM):
         super().__init__()
         H, W, dt = lstm_hidden_dim, SOURCE_CONV_WIDTH, dtype
         self.mlp = ResidualMLP(input_channels,
@@ -183,7 +186,7 @@ class SourceEncoder(nn.Module):
         self.lstm_norm = LayerNorm(H, dt)
         self.pre_output = ResidualMLP(H, geometric_schedule(H, 32, 4),
                                       final_activation=True, dtype=dt)
-        self.mu_layer = ResidualMLP(32, geometric_schedule(32, LATENT_DIM, 4),
+        self.mu_layer = ResidualMLP(32, geometric_schedule(32, latent_dim, 4),
                                     final_activation=False, dtype=dt)
 
     def pre_lstm(self, x):
@@ -201,11 +204,12 @@ class ConditionalEncoder(nn.Module):
     logvar heads. The geometric schedule over 8 hidden layers is split 5
     (trunk) + 3 (each head)."""
 
-    def __init__(self, dtype: Dtype = None):
+    def __init__(self, dtype: Dtype = None, dim_hx: int = LATENT_DIM,
+                 dim_hy: int = LATENT_DIM, dim_z: int = LATENT_DIM):
         super().__init__()
-        dims = geometric_schedule(2 * LATENT_DIM, LATENT_DIM, 8)
-        self.mlp = ResidualMLP(2 * LATENT_DIM, dims[0:5], final_activation=True,
-                               dtype=dtype)
+        dims = geometric_schedule(dim_hx + dim_hy, dim_z, 8)
+        self.mlp = ResidualMLP(dim_hx + dim_hy, dims[0:5],
+                               final_activation=True, dtype=dtype)
         self.fc_mu = ResidualMLP(dims[4], dims[5:], final_activation=False,
                                  use_skip_connection=False, dtype=dtype)
         self.fc_logvar = ResidualMLP(dims[4], dims[5:], final_activation=False,
@@ -216,28 +220,45 @@ class ConditionalEncoder(nn.Module):
         return self.fc_mu(h), self.fc_logvar(h)
 
 
-# (features, kernel, 2x upsample?) of the decoder's reflect-conv ladder
+# (features, kernel, upsample slot?) of the decoder's reflect-conv ladder
 DECODER_CONV_SPEC = ((77, 11, False), (66, 9, True), (55, 7, True),
                      (44, 5, False), (33, 5, True), (22, 3, True),
                      (11, 3, False), (1, 3, False))
 
 
+def decoder_up_slots(upsample_factor: int) -> Tuple[bool, ...]:
+    """Which blocks of DECODER_CONV_SPEC upsample 2x for a decimation
+    factor: the first log2(factor) of the four upsample slots, the JAX
+    Decoder's rule (factor 16 upsamples at all four, 1 at none)."""
+    n_up = upsample_factor.bit_length() - 1
+    if upsample_factor < 1 or 2 ** n_up != upsample_factor or n_up > 4:
+        raise ValueError(f"upsample_factor must be a power of two <= 16, got "
+                         f"{upsample_factor}")
+    slots, out = 0, []
+    for _, _, is_slot in DECODER_CONV_SPEC:
+        out.append(is_slot and slots < n_up)
+        slots += is_slot
+    return tuple(out)
+
+
 class Decoder(nn.Module):
     """z (B,S,latent) -> (linear_output (B,S,coeff), raw mu/logvar
-    (B, 16*S)): MLP trunk, 8 reflect-conv blocks with 4 2x-upsample stages,
-    two dense heads of width 16*seq_len."""
+    (B, f*S)): MLP trunk, 8 reflect-conv blocks with log2(f) 2x-upsample
+    stages (f = upsample_factor), two dense heads of width f*seq_len."""
 
     def __init__(self, coeff_channels: int = 87, seq_len: int = 300,
-                 dtype: Dtype = None):
+                 dtype: Dtype = None, latent_dim: int = LATENT_DIM,
+                 upsample_factor: int = UPSAMPLE):
         super().__init__()
-        self.raw_len = seq_len * UPSAMPLE
-        self.linear_0 = ResidualMLP(LATENT_DIM,
-                                    geometric_schedule(LATENT_DIM, 50, 5),
+        self.raw_len = seq_len * upsample_factor
+        self.linear_0 = ResidualMLP(latent_dim,
+                                    geometric_schedule(latent_dim, 50, 5),
                                     final_activation=True, dtype=dtype)
         self.linear_1 = ResidualMLP(50, geometric_schedule(50, coeff_channels, 5),
                                     final_activation=True, dtype=dtype)
         in_features = coeff_channels
-        for i, (feat, k, up) in enumerate(DECODER_CONV_SPEC):
+        for i, ((feat, k, _), up) in enumerate(zip(
+                DECODER_CONV_SPEC, decoder_up_slots(upsample_factor))):
             self.add_module(f"conv_{i}", ReflectConvBlock(
                 in_features, feat, k, up_sampling=up, dtype=dtype))
             in_features = feat
@@ -275,16 +296,23 @@ class SeqVaeTeb(nn.Module):
     def __init__(self, input_channels: int = 130, n_scattering: int = 43,
                  n_phase: int = 44, lstm_hidden_dim: int = 64,
                  lstm_num_layers: int = 4, seq_len: int = 300,
-                 dtype: Dtype = None):
+                 dtype: Dtype = None, latent_dim_source: int = LATENT_DIM,
+                 latent_dim_target: int = LATENT_DIM,
+                 latent_dim_z: int = LATENT_DIM,
+                 decimation_factor: int = UPSAMPLE):
         super().__init__()
         self.dtype = dtype
         self.recurrence: Callable = wavefront_recurrence
         self.source_encoder = SourceEncoder(input_channels, lstm_hidden_dim,
-                                            lstm_num_layers, dtype)
+                                            lstm_num_layers, dtype,
+                                            latent_dim_source)
         self.target_encoder = TargetEncoder(lstm_hidden_dim, lstm_num_layers,
-                                            n_scattering, n_phase, dtype)
-        self.conditional_encoder = ConditionalEncoder(dtype)
-        self.decoder = Decoder(n_scattering + n_phase, seq_len, dtype)
+                                            n_scattering, n_phase, dtype,
+                                            latent_dim_target)
+        self.conditional_encoder = ConditionalEncoder(
+            dtype, latent_dim_source, latent_dim_target, latent_dim_z)
+        self.decoder = Decoder(n_scattering + n_phase, seq_len, dtype,
+                               latent_dim_z, decimation_factor)
 
     def encode(self, y_st, y_ph, x_ph) -> Dict[str, torch.Tensor]:
         """All three encoders; the two LSTMs run as one wavefront."""
@@ -329,6 +357,11 @@ class SeqVaeTeb(nn.Module):
         linear_output, mu_pr, logvar_pr = self.decoder(z)
         return {"z": z, "linear_output": linear_output,
                 "mu_pr": mu_pr, "logvar_pr": logvar_pr, **enc}
+
+    def decode(self, z):
+        """The decoder alone (latent interpolation): z (B, S, latent_dim_z)
+        -> (linear_output, raw mu, raw logvar), in the module's mode."""
+        return self.decoder(z)
 
     def measure_transfer_entropy(self, y_st, y_ph, x_ph):
         """TE(source -> latent) = KL(q(z|x,y) || p(z|y)) per step and dim."""

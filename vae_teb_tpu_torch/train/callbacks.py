@@ -1,18 +1,21 @@
 """Training-time callbacks for `Trainer.fit`.
 
-Port of `vae_teb_tpu.train.callbacks`: `Callback`, `HistoryCallback` and
-`MemoryMonitorCallback`. Hooks are on_epoch_end(trainer, epoch) and
+Port of `vae_teb_tpu.train.callbacks`: `Callback`, `LossCurveCallback`,
+`HistoryCallback`, `MemoryMonitorCallback` and
+`ReconstructionPlotCallback`. Hooks are on_epoch_end(trainer, epoch) and
 on_fit_end(trainer): the trainer holds the state the JAX package passes
-as a separate argument. `LossCurveCallback` and
-`ReconstructionPlotCallback` need matplotlib and the evaluation plots, and
-go with the eval slice.
+as a separate argument. The two plotting callbacks need matplotlib
+(imported by `eval.plots` inside each function); `Trainer.fit` logs a
+callback's failure and goes on.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -24,6 +27,25 @@ class Callback:
 
     def on_fit_end(self, trainer) -> None:
         pass
+
+
+class LossCurveCallback(Callback):
+    """Rewrite the loss-curve figure every `every` epochs and at the end
+    of fit, so a live run has an up-to-date plot."""
+
+    def __init__(self, out_path: str, every: int = 1):
+        self.out_path = out_path
+        self.every = max(1, every)
+
+    def on_epoch_end(self, trainer, epoch: int) -> None:
+        if epoch % self.every:
+            return
+        from ..eval.plots import plot_loss_curves
+        plot_loss_curves(trainer.history, self.out_path)
+
+    def on_fit_end(self, trainer) -> None:
+        from ..eval.plots import plot_loss_curves
+        plot_loss_curves(trainer.history, self.out_path)
 
 
 class HistoryCallback(Callback):
@@ -79,3 +101,48 @@ class MemoryMonitorCallback(Callback):
                         f"{100 * self.threshold_fraction:.0f}% threshold) "
                         f"at epoch {epoch}")
         self.peaks_mb.append(peak)
+
+
+class ReconstructionPlotCallback(Callback):
+    """Every `every` epochs, run the trainer's model on one held-out batch
+    and write a reconstruction figure per sample.
+
+    batch: fhr_st / fhr_ph / fhr_up_ph / fhr arrays in the model's layout
+    (normalized, (B, S, C)). The forward runs on the trainer's device, in
+    eval mode and without a gradient, on the first `max_samples` rows; the
+    model's mode is restored after it.
+    """
+
+    def __init__(self, out_dir: str, batch: Dict[str, np.ndarray],
+                 every: int = 10, max_samples: int = 2):
+        self.out_dir = out_dir
+        self.batch = batch
+        self.every = max(1, every)
+        self.max_samples = max_samples
+        os.makedirs(out_dir, exist_ok=True)
+
+    def on_epoch_end(self, trainer, epoch: int) -> None:
+        if epoch % self.every:
+            return
+        import matplotlib  # noqa: F401  (fail before the forward without it)
+        from ..eval.plots import plot_vae_reconstruction
+        b = self.batch
+        k = min(self.max_samples, len(b["fhr"]))
+        model = trainer.model
+        training = model.training
+        try:
+            with torch.inference_mode():
+                out = model.eval()(*(torch.as_tensor(
+                    b[f][:k], dtype=torch.float32, device=trainer.device)
+                    for f in ("fhr_st", "fhr_ph", "fhr_up_ph")),
+                    deterministic=True)
+                mu = out["mu_pr"].float().cpu().numpy()
+                logvar = out["logvar_pr"].float().cpu().numpy()
+        finally:
+            model.train(training)
+        for i in range(k):
+            plot_vae_reconstruction(
+                np.asarray(b["fhr"][i]), mu[i], logvar[i],
+                os.path.join(self.out_dir,
+                             f"reconstruction_epoch{epoch:04d}_s{i}.png"),
+                title=f"epoch {epoch} sample {i}")
