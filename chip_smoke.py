@@ -4,10 +4,12 @@ point, exact frontend, dataset ETL and evaluation on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
+    python3 chip_smoke.py --serve     # phases 1, 2 and 4, printing no result
 
-Run with --kernels from a copy placed at the root of another checkout, it
-times that checkout's kernels (the wrappers' signatures are unchanged since
-the first kernels), so two versions compare on one card.
+Run with --kernels or --serve from a copy placed at the root of another
+checkout, it times that checkout's kernels or serving path (the wrappers'
+and the server's signatures are unchanged since the first kernels), so
+two versions compare on one card.
 
 Phases, each of which raises on failure (exit code 1):
   1. device: CUDA must be present (exit 2 otherwise, before any result);
@@ -24,15 +26,21 @@ Phases, each of which raises on failure (exit code 1):
      |gate|)), the reverse wavefront (max-abs <= 1e-5 fp32, 3e-2 bf16, of
      max|plain| on each output). At 2x4 layers, B = 32 and 128 fp32 and
      B = 32 bf16, also CUDA-event times (median of 15 runs; plain 5), the
-     bound (fp32 operations on the non-zero weight blocks over 67 TFLOP/s,
-     or bytes over 3.35 TB/s) and the yardstick: cuDNN's LSTM
+     bound (fp32 operations on the non-zero weight blocks, over the S
+     steps each unit runs, over 67 TFLOP/s, or bytes over 3.35 TB/s) and the yardstick: cuDNN's LSTM
      (`torch.nn.LSTM`, one per stream) computing the same function, held
      to the kernel's outputs at 1e-4 of max (bf16 storage: 1.6e-2) and
      timed forward and backward-data; then the serving forward at B=244
      (one shift program of phase 10: 25 clusters, more than the card
      holds at once, so it runs in waves), fp32 and bf16, with its launch
      plan and waves, rows 0-149 and 150-243 held apart, times, bound and
-     the cuDNN yardstick;
+     the cuDNN yardstick (fp32 and bf16); then the streaming encode's
+     launches, one 4-layer stream (U=4: clusters of 4 CTAs, whose plan it
+     prints) from a random non-zero h0/c0, at B = 1 and 32, S = 1 (K=4)
+     and 300, fp32 and bf16, each held to the plain version at the bars
+     above, with times, bound and (fp32) the cuDNN yardstick; and the host
+     time of a call of the operator vae_teb_tpu_torch::wavefront_fwd
+     against a direct launch;
   4. serve raw (B, 5760) FHR/UP windows at B = 1, 8 and 32 through the
      full-width fp32 model (seeded init) and the production reduced-rate
      frontend; check shapes, finiteness, that every forward launched the
@@ -89,10 +97,28 @@ Phases, each of which raises on failure (exit code 1):
      against the plain recurrence on the card (1e-4 of max), and sample 0's
      rows against a CPU run (1e-2 per entry; gain 0 at 1e-4 of max); prints
      CUDA-event times, windows/s and peak memory;
- 11. print the card's nvidia-smi name and power limit, one JSON line for
+ 11. streaming and serving artifacts on the full-width fp32 model (seed 2,
+     TF32 off) and x_ph of the production frontend: StreamingSession at
+     B = 1 and 32 over chunks (1, 7, 30, 262) and over 60 chunks of 1,
+     against the full-sequence source encode on the card (1e-5 of max),
+     one serving-kernel launch per chunk, against the same session through
+     the plain recurrence on the card (1e-5), a resume from a copied state bit
+     for bit, B=1 against a CPU session (1e-4 of max); the bf16 policy's
+     LSTM chained from its bf16 state bit for bit against one pass, and
+     its session against its full encode (3e-2 of max), beside the full
+     encode's own move when its rows are encoded one by one; per-chunk
+     latency at chunk 1 and 30 (CUDA events) beside the full recompute of
+     get_sequence_encoding; export_inference on the card with a symbolic
+     batch traced at B=2, weights as argument and bundled, saved, loaded
+     and run at B = 1, 8 and 32 against the live model (1e-6 of max, one
+     launch per call), the artifacts' bytes, load time and B=32 latency
+     against the live model; export_source_stream at B=32, chunk 1,
+     chained 30 steps against the session (1e-6 of max);
+ 12. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
-     counted from 0 at that phase's start, and the serving forward's
-     launches in phase 10), and last {"ok": true, "device": {...}}.
+     counted from 0 at that phase's start, the serving forward's launches
+     in phase 10, and in phase 11 the sessions' and the loaded programs'),
+     and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -172,6 +198,25 @@ WAVE_BATCH = 4 * 61   # one shift program's rows: the first multi-wave launch
 # dilutes; card and CPU FFTs round further apart (PERF.md gives the
 # measured values). A misplaced row moves an entry by ~1e-1.
 EVAL_SAME_CARD_TOL, EVAL_CPU_TOL = 1e-3, 1e-2
+# Phase 3's single-stream cases: (batch, S) of the streaming encode's
+# launches (S=1 is K=4, a chunk of one step)
+STREAM_KERNEL_CASES = ((1, 1), (32, 1), (1, 300), (32, 300))
+OP_CALLS = 200        # calls timed for the operator's host overhead
+# Phase 11 (PERF.md gives the measured values). Chained chunks against the
+# full encode: the layer-0 projection runs over other row counts, so cuBLAS
+# may sum in another order: the JAX package's streaming bar
+# (tests/test_models.py). A loaded program against the live model runs the
+# same kernels on the same inputs.
+STREAM_CHUNKS = (1, 7, 30, 262)
+STREAM_STEPS = 60
+STREAM_TOL, STREAM_CPU_TOL, EXPORT_TOL = 1e-5, 1e-4, 1e-6
+# The bf16 session against the bf16 full encode, of max: the bf16 MLP's
+# GEMMs over other row counts round a product a ulp apart, which the
+# recurrence carries on (measured 1.85e-2; the full encode moves 2.16e-2
+# when its rows are encoded one by one). A wrong carried state is O(1).
+BF16_STREAM_TOL = 3e-2
+ARTIFACT_BATCHES = (1, 8, 32)
+ARTIFACT_STEPS = 30
 OUT_KEYS = ("z", "linear_output", "mu_pr", "logvar_pr", "mu_x", "mu_prior",
             "logvar_prior", "mu_post", "logvar_post")
 
@@ -231,15 +276,15 @@ def recurrence_inputs(gen, b, s, h, depths, dtype, device):
         lvec.to(device),)
 
 
-def bound(kind, B, K, U, H, n_feed, itemsize):
+def bound(kind, B, K, S, U, H, n_feed, itemsize):
     """(bound_ms, bound_by): the least time the card could take for one
     call, the larger of the fp32 operations the non-zero weight blocks need
-    (2 * H * 4H per block, per row, per step) over the fp32 peak and the
-    bytes of every input read once and every output written once over the
-    memory rate."""
+    (2 * H * 4H per block, per row, per step that its unit runs: S of the K
+    wavefront steps) over the fp32 peak and the bytes of every input read
+    once and every output written once over the memory rate."""
     UH, G = U * H, 4 * U * H
     blocks = U + n_feed
-    flops = 2 * H * 4 * H * blocks * B * K
+    flops = 2 * H * 4 * H * blocks * B * S
     weights = blocks * H * 4 * H
     if kind == "bwd":     # gates_seq, c_seq, c_prev_seq, dY, dh0, dc0 in
         elems = weights + K * B * G + 3 * K * B * UH + 2 * B * UH
@@ -465,7 +510,7 @@ def check_kernels(device, S=300, H=64):
         except RuntimeError as e:     # a type cuDNN's LSTM does not take
             log(f"cuDNN LSTM yardstick {label}: not available ({e})")
         for kind in ("fwd", "fwd_res", "bwd"):
-            bnd = bound(kind, b, K, U, H, n_feed, xs.element_size())
+            bnd = bound(kind, b, K, S, U, H, n_feed, xs.element_size())
             results[(kind, depths, b, dtype)] += [lib[kind], bnd]
             _, ms, _ = results[(kind, depths, b, dtype)][:3]
             log(f"{kind} {label}: kernel {ms!r} ms, cuDNN {lib[kind]!r} ms, "
@@ -482,7 +527,7 @@ def check_waves(device, S=300, H=64):
     program of phase 10) in fp32 and bf16 storage, kernel against plain at
     phase 3's bars, with its launch plan (rows per cluster, clusters, the
     clusters the card holds at once, waves), CUDA-event times, the bound,
-    and cuDNN's LSTM forward as the yardstick (fp32)."""
+    and cuDNN's LSTM forward as the yardstick."""
     from vae_teb_tpu_torch.kernels import wavefront_fwd, wavefront_fwd_plain
     from vae_teb_tpu_torch.kernels.wavefront import (_card_resident,
                                                      _launch_plan)
@@ -506,26 +551,100 @@ def check_waves(device, S=300, H=64):
         ms = cuda_time_ms(lambda: wavefront_fwd(*args, S))
         plain_ms = cuda_time_ms(lambda: wavefront_fwd_plain(*args, S),
                                 PLAIN_RUNS)
-        bnd = bound("fwd", b, K, U, H, int((args[5] > 0).sum()),
+        bnd = bound("fwd", b, K, S, U, H, int((args[5] > 0).sum()),
                     args[2].element_size())
-        lib_ms = None
-        if dtype == torch.float32:
-            streams = cudnn_streams(args, depths, S)
-            lib_err = cudnn_check(streams, depths, *got, S)
-            if not lib_err <= LIBRARY_REL_TOL[dtype]:
-                failed.append(f"cuDNN yardstick B={b}: {lib_err}")
-            lib_ms = cudnn_times(streams, gen)[0]
         name = str(dtype)[6:]
+        streams = cudnn_streams(args, depths, S)
+        lib_err = cudnn_check(streams, depths, *got, S)
+        if not lib_err <= LIBRARY_REL_TOL[dtype]:
+            failed.append(f"cuDNN yardstick B={b} {name}: {lib_err}")
+        lib_ms = cudnn_times(streams, gen)[0]
         log(f"serving forward 4x4 layers B={b} S={S} {name}: plan "
             f"M={plan.rows} rows per cluster, {plan.clusters} clusters of {U} CTAs, the "
             f"card holds {held} at once: {waves} waves; max_abs_err rows "
             f"0-149 {errs[0]!r}, rows 150-{b - 1} {errs[1]!r} (tol {tol}); "
-            f"kernel {ms!r} ms, plain {plain_ms!r} ms, cuDNN {lib_ms!r} ms, "
+            f"kernel {ms!r} ms, plain {plain_ms!r} ms, cuDNN {lib_ms!r} ms "
+            f"(max-abs/max {lib_err!r}, tol {LIBRARY_REL_TOL[dtype]}), "
             f"bound {bnd[0]!r} ms ({bnd[1]}), {bnd[0] / ms:.4%} of the bound")
         if not max(errs) <= tol:
             failed.append(f"serving forward B={b} {name}: {max(errs)} > {tol}")
     if failed:
         raise AssertionError("multi-wave forward: " + "; ".join(failed))
+
+
+def check_single_stream(device, H=64):
+    """Phase 3's streaming cases: the serving forward on one 4-layer stream
+    (U=4, clusters of 4 CTAs) from a random non-zero h0/c0, as a chunk of
+    the streaming source encode launches it, at every (B, S) of
+    STREAM_KERNEL_CASES in fp32 and bf16 storage: kernel against plain at
+    phase 3's bars, CUDA-event times, the bound (4 recurrent and 3 feed
+    blocks) and, in fp32, cuDNN's 4-layer LSTM from the same state; the
+    launch plan of each batch. Then the host time of one call of the
+    operator against a direct launch (B=1, K=4). Returns {(B, S, dtype):
+    (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}."""
+    from vae_teb_tpu_torch.kernels import wavefront_fwd, wavefront_fwd_plain
+    from vae_teb_tpu_torch.kernels.wavefront import (_card_resident, _fwd_cuda,
+                                                     _launch_plan,
+                                                     wavefront_fwd_op)
+    gen = torch.Generator().manual_seed(7)
+    depths = (4,)
+    results, failed = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        held = _card_resident(device, dtype, 4, H)
+        for b in sorted({b for b, _ in STREAM_KERNEL_CASES}):
+            plan = _launch_plan(b, 4, H, dtype, held)
+            slots = held(plan.rows, plan.fwd_smem, plan.bwd_smem)
+            log(f"single stream B={b} {name}: {plan.clusters} clusters of 4 "
+                f"CTAs x {plan.rows} rows, shared memory {plan.fwd_smem} B; "
+                f"the card holds {slots} such clusters at once")
+        for b, S in STREAM_KERNEL_CASES:
+            args = recurrence_inputs(gen, b, S, H, depths, dtype, device)
+            K = args[2].shape[0]
+            got = wavefront_fwd(*args, S)
+            want = wavefront_fwd_plain(*args, S)
+            torch.cuda.synchronize()
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+            scale = max(w.float().abs().max().item() for w in want)
+            ms = cuda_time_ms(lambda: wavefront_fwd(*args, S))
+            plain_ms = cuda_time_ms(lambda: wavefront_fwd_plain(*args, S),
+                                    PLAIN_RUNS)
+            bnd = bound("fwd", b, K, S, 4, H, 3, args[2].element_size())
+            lib_ms = lib_err = None
+            if dtype == torch.float32:
+                streams = cudnn_streams(args, depths, S)
+                lib_err = cudnn_check(streams, depths, *got, S)
+                if not lib_err <= LIBRARY_REL_TOL[dtype]:
+                    failed.append(f"cuDNN yardstick B={b} S={S}: {lib_err}")
+                lib_ms = cudnn_times(streams, gen)[0]
+            label = f"single stream (4,) B={b} S={S} K={K} {name}"
+            log(f"serving forward {label}: max_abs_err={err!r} (tol {tol}, "
+                f"max|plain| {scale!r}) kernel {ms!r} ms, plain {plain_ms!r} "
+                f"ms, cuDNN {lib_ms!r} ms (max-abs/max {lib_err!r}), bound "
+                f"{bnd[0]!r} ms ({bnd[1]}), {bnd[0] / ms:.4%} of the bound")
+            if not err <= tol:
+                failed.append(f"serving forward {label}: {err} > {tol}")
+            results[(b, S, dtype)] = (err, ms, plain_ms, lib_ms, bnd)
+    # the operator's host overhead: enqueue time of a call, host clock
+    args = recurrence_inputs(gen, 1, 1, H, depths, torch.float32, device)
+    host = {}
+    for label, fn in (("operator", lambda: wavefront_fwd_op(*args, 1)),
+                      ("direct launch", lambda: _fwd_cuda(*args, 1, False))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(OP_CALLS):
+            fn()
+        host[label] = (time.perf_counter() - t) / OP_CALLS * 1e6
+        torch.cuda.synchronize()
+    log(f"host time a call (B=1, K=4, {OP_CALLS} calls): operator "
+        f"{host['operator']!r} us, direct launch {host['direct launch']!r} us"
+        f", overhead {host['operator'] - host['direct launch']!r} us")
+    if failed:
+        raise AssertionError("single-stream forward: " + "; ".join(failed))
+    return results
 
 
 def serve(device):
@@ -1661,10 +1780,224 @@ def eval_phase(device):
     return launches
 
 
+def stream_export_phase(device):
+    """Streaming sessions and serving artifacts on the card (phase 11).
+    Returns (serving-kernel launches of the checked session chunks, of the
+    checked calls of loaded programs)."""
+    import copy
+    import os
+    import tempfile
+    from vae_teb_tpu_torch import (SeqVaeTeb, StreamingSession,
+                                   WindowFrontend, export_inference,
+                                   export_source_stream, init_parameters,
+                                   load_artifact, production_frontend,
+                                   save_artifact)
+    from vae_teb_tpu_torch.kernels import (wavefront_fwd, wavefront_fwd_plain,
+                                           wavefront_recurrence)
+    from vae_teb_tpu_torch.models import run_lstm_streams
+    from vae_teb_tpu_torch.serve import COEFF_KEYS
+
+    failed = []
+
+    def check(name, value, tol):
+        log(f"{name}: {value!r} (tol {tol})")
+        if not value <= tol:
+            failed.append(f"{name}: {value!r} > {tol}")
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30)).item()
+
+    def launches_of(fn):
+        wavefront_fwd.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, wavefront_fwd.launches
+
+    frontend = WindowFrontend(production_frontend(device))
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((2, 32, N), generator=gen, device=device)
+    coeffs = frontend(x[0], x[1])
+    x_ph = coeffs[2]                                   # (32, 300, 130)
+    S = x_ph.shape[1]
+    model = init_parameters(SeqVaeTeb(), seed=INIT_SEED).to(device).eval()
+    with torch.inference_mode():
+        full = model.source_encoder(x_ph)
+
+    def chain(session, b, sizes, start=0):
+        outs, lo = [], start
+        for n in sizes:
+            outs.append(session.step(x_ph[:b, lo:lo + n]))
+            lo += n
+        return torch.cat(outs, 1)
+
+    stream_launches = 0
+    for b in (1, 32):
+        for sizes in (STREAM_CHUNKS, (1,) * STREAM_STEPS):
+            session = StreamingSession(model, b, device)
+            got, n = launches_of(lambda: chain(session, b, sizes))
+            label = (f"session B={b}, {len(sizes)} chunks of "
+                     f"{sizes if len(set(sizes)) > 1 else sizes[0]}")
+            check(f"{label}: chained vs full source encode, max-abs/max",
+                  rel(got, full[:b, :got.shape[1]]), STREAM_TOL)
+            if n != len(sizes):
+                failed.append(f"{label}: {n} kernel launches")
+            stream_launches += n
+    # the same session through the plain recurrence on the card
+    kernel = chain(StreamingSession(model, 32, device), 32, STREAM_CHUNKS)
+    model.recurrence = wavefront_fwd_plain
+    try:
+        plain = chain(StreamingSession(model, 32, device), 32, STREAM_CHUNKS)
+    finally:
+        model.recurrence = wavefront_recurrence
+    check("session B=32, kernel vs plain recurrence on the card, "
+          "max-abs/max", rel(kernel, plain), STREAM_TOL)
+    # resume from a copy of the state after the first two chunks
+    session = StreamingSession(model, 32, device)
+    chain(session, 32, STREAM_CHUNKS[:2])
+    saved = copy.deepcopy(session.state)
+    rest = chain(session, 32, STREAM_CHUNKS[2:], sum(STREAM_CHUNKS[:2]))
+    resumed = StreamingSession(model, 32, device)
+    resumed.state = saved
+    again = chain(resumed, 32, STREAM_CHUNKS[2:], sum(STREAM_CHUNKS[:2]))
+    log(f"session resumed from a copied state: bit for bit "
+        f"{torch.equal(rest, again)}")
+    if not torch.equal(rest, again):
+        failed.append(f"resumed session differs by {rel(again, rest)!r}")
+    # B=1 against a CPU session
+    card = chain(StreamingSession(model, 1, device), 1, STREAM_CHUNKS)
+    cpu_session = StreamingSession(copy.deepcopy(model).cpu(), 1, "cpu")
+    outs, lo = [], 0
+    for n in STREAM_CHUNKS:
+        outs.append(cpu_session.step(x_ph[:1, lo:lo + n].cpu()))
+        lo += n
+    check("session B=1, card vs CPU, max-abs/max",
+          rel(card.cpu(), torch.cat(outs, 1)), STREAM_CPU_TOL)
+    # the bf16 policy: the recurrence carries the bf16 state exactly; the
+    # layers around it round a bf16 product a ulp apart when cuBLAS or
+    # cuDNN sum another number of rows in another order, as the full encode
+    # does between batch layouts
+    m16 = SeqVaeTeb(dtype=torch.bfloat16)
+    m16.load_state_dict(model.state_dict())
+    m16 = m16.to(device).eval()
+    se16 = m16.source_encoder
+    with torch.inference_mode():
+        full16 = se16(x_ph)
+        rows16 = torch.cat([se16(x_ph[i:i + 1]) for i in range(32)])
+        pre = se16.pre_lstm(x_ph)
+        ((want, _),) = run_lstm_streams([se16.lstm(pre)])
+        outs, lo, state = [], 0, None
+        for n in STREAM_CHUNKS:
+            ((y, state),) = run_lstm_streams([se16.lstm(pre[:, lo:lo + n],
+                                                        state)])
+            outs.append(y)
+            lo += n
+    log(f"bf16 LSTM chained over chunks {STREAM_CHUNKS} from its bf16 state "
+        f"vs one pass, on identical inputs: bit for bit "
+        f"{torch.equal(torch.cat(outs, 1), want)}")
+    if not torch.equal(torch.cat(outs, 1), want):
+        failed.append("bf16 LSTM chained vs one pass differs by "
+                      f"{rel(torch.cat(outs, 1), want)!r}")
+    got16 = chain(StreamingSession(m16, 32, device), 32, STREAM_CHUNKS)
+    move = rel(rows16, full16)
+    log(f"bf16 full source encode B=32 vs its rows encoded one by one, "
+        f"max-abs/max: {move!r}")
+    check("bf16 session B=32 vs bf16 full source encode, max-abs/max",
+          rel(got16, full16), BF16_STREAM_TOL)
+    del m16, se16
+
+    # per-chunk latency beside the full recompute of the reference's API
+    for b in (1, 32):
+        session = StreamingSession(model, b, device)
+        for n in (1, 30):
+            chunk = x_ph[:b, :n].contiguous()
+            ms = cuda_time_ms(lambda: session.step(chunk))
+            log(f"stream B={b} chunk {n}: {ms!r} ms a chunk (CUDA events, "
+                f"median of {TIMED_RUNS})")
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: model.get_sequence_encoding(x_ph[:b],
+                                                                  S - 1))
+        log(f"get_sequence_encoding B={b} (the full {S}-step source encode "
+            f"a call): {ms!r} ms")
+
+    # the inference artifact, both flavours, traced at B=2
+    export_launches = 0
+    example = {k: c[:2] for k, c in zip(COEFF_KEYS, coeffs)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for bundle in (False, True):
+            flavour = "bundled" if bundle else "weights as argument"
+            t = time.perf_counter()
+            program = export_inference(model, example, bundle_params=bundle,
+                                       device=device)
+            export_s = time.perf_counter() - t
+            path = os.path.join(tmp, "inference.pt2")
+            nbytes = save_artifact(program, path)
+            del program
+            t = time.perf_counter()
+            loaded = load_artifact(path).module()
+            load_s = time.perf_counter() - t
+            weights = () if bundle else (model.state_dict(),)
+            log(f"inference artifact, {flavour}: {nbytes} bytes, export "
+                f"{export_s:.2f} s, load {load_s:.2f} s")
+            for b in ARTIFACT_BATCHES:
+                args = tuple(c[:b] for c in coeffs)
+                with torch.inference_mode():
+                    want = model(*args)
+                    got, n = launches_of(lambda: loaded(*weights, *args))
+                check(f"loaded program ({flavour}) B={b} vs live model, "
+                      f"worst max-abs/max",
+                      max(rel(got[k], want[k]) for k in OUT_KEYS), EXPORT_TOL)
+                if n != 1:
+                    failed.append(f"loaded program ({flavour}) B={b}: {n} "
+                                  f"kernel launches")
+                export_launches += n
+            with torch.inference_mode():
+                args = tuple(c[:32] for c in coeffs)
+                ms = cuda_time_ms(lambda: loaded(*weights, *args))
+                live_ms = cuda_time_ms(lambda: model(*args))
+            log(f"B=32 request, {flavour}: loaded program {ms!r} ms, live "
+                f"model {live_ms!r} ms (CUDA events, median of {TIMED_RUNS})")
+            os.remove(path)
+            del loaded
+
+        # the stream artifact at B=32, chunk 1, against a session
+        program = export_source_stream(model, batch_size=32, chunk_len=1,
+                                       n_channels=x_ph.shape[-1],
+                                       device=device)
+        path = os.path.join(tmp, "stream.pt2")
+        nbytes = save_artifact(program, path)
+        step = load_artifact(path).module()
+        state = model.init_source_stream_state(32)
+        weights = model.state_dict()
+        outs = []
+        wavefront_fwd.launches = 0
+        with torch.inference_mode():
+            for t in range(ARTIFACT_STEPS):
+                mu, state = step(weights, x_ph[:, t:t + 1], state)
+                outs.append(mu)
+        torch.cuda.synchronize()
+        n = wavefront_fwd.launches
+        want = chain(StreamingSession(model, 32, device), 32,
+                     (1,) * ARTIFACT_STEPS)
+        check(f"stream artifact ({nbytes} bytes) B=32, {ARTIFACT_STEPS} steps "
+              f"of 1 vs a session, max-abs/max", rel(torch.cat(outs, 1), want),
+              EXPORT_TOL)
+        if n != ARTIFACT_STEPS:
+            failed.append(f"stream artifact: {n} launches in {ARTIFACT_STEPS} "
+                          f"steps")
+        export_launches += n
+    log(f"phase 11 serving-kernel launches: {stream_launches} in the checked "
+        f"session chunks, {export_launches} in the checked program calls")
+    if failed:
+        raise AssertionError("stream / export checks failed:\n"
+                             + "\n".join(failed))
+    return stream_launches, export_launches
+
+
 def main(argv) -> int:
-    kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+    kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
+    if argv and not (kernels_only or serve_only):
+        print("usage: chip_smoke.py [--kernels | --serve]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1690,10 +2023,14 @@ def main(argv) -> int:
         check_kernels(device)
         check_waves(device)
         return 0
+    if serve_only:            # phase 4 alone, also on an older checkout
+        serve(device)
+        return 0
     check_residency(device)
 
     kernels = check_kernels(device)
     check_waves(device)
+    check_single_stream(device)
     launches = serve(device)
     (res_launches, bwd_launches), fp32_times = train(device)
     bf16 = {"bf16_forward": bf16_forward(device),   # per phase
@@ -1701,18 +2038,21 @@ def main(argv) -> int:
             "fit": fit_phase(device)}
     frontend_etl_phase(device)
     eval_launches = eval_phase(device)
+    stream_launches, export_launches = stream_export_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
-                "wavefront_fwd_bf16", eval_launches),
+                "wavefront_fwd_bf16", (eval_launches, stream_launches,
+                                       export_launches)),
                ("wavefront_fwd_residuals", "wavefront_fwd.cu", 80,
-                res_launches, "fwd_res", "wavefront_fwd_res_bf16", 0),
+                res_launches, "fwd_res", "wavefront_fwd_res_bf16", (0, 0, 0)),
                ("wavefront_bwd", "wavefront_bwd.cu", 187, bwd_launches, "bwd",
-                "wavefront_bwd_bf16", 0))
+                "wavefront_bwd_bf16", (0, 0, 0)))
     # each kernel's numbers at the main path's training batch (B=32, fp32)
     print(card())
     rows = []
-    for name, src, line, n, key, bf16_entry, n_eval in entries:
+    for name, src, line, n, key, bf16_entry, (n_eval, n_stream,
+                                              n_export) in entries:
         err, ms, plain_ms, library_ms, (bound_ms, bound_by) = kernels[
             (key,) + case]
         rows.append({
@@ -1724,7 +2064,8 @@ def main(argv) -> int:
             "library_ms": library_ms,
             "bf16_launches": {phase: counts.get(bf16_entry, 0)
                               for phase, counts in bf16.items()},
-            "eval_launches": n_eval})
+            "eval_launches": n_eval, "stream_launches": n_stream,
+            "export_launches": n_export})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

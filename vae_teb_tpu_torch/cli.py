@@ -1,5 +1,5 @@
-"""Command-line entry point of the port: train, test, build-data, stats,
-pack-data.
+"""Command-line entry point of the port: train, test, export, build-data,
+stats, pack-data.
 
     python -m vae_teb_tpu_torch.cli train --config configs/default.yaml \
         [--root DIR] [--resume [CKPT_DIR]] [--device-normalize] \
@@ -7,17 +7,24 @@ pack-data.
     python -m vae_teb_tpu_torch.cli test --config configs/default.yaml \
         [--checkpoint DIR] [--num-samples 50] [--with-scattering] \
         [--bf16-frontend] [--reduced-frontend] [--device cpu]
+    python -m vae_teb_tpu_torch.cli export --config configs/default.yaml \
+        --out model.pt2 [--checkpoint DIR] [--seq-len 300] [--static-batch B] \
+        [--bundle-params] [--stream --chunk-len 1] [--platforms cuda|cpu] \
+        [--device cpu]
     python -m vae_teb_tpu_torch.cli build-data --out data.h5 \
         [--records 16 --windows 8 --seed 0] [--stats-out stats.h5] [--device cpu]
     python -m vae_teb_tpu_torch.cli stats --data data.h5 --out stats.h5
     python -m vae_teb_tpu_torch.cli pack-data --data data.h5 --out DIR \
         [--stats stats.h5 | --raw]
 
-Port of the `train`, `test`, `build-data`, `stats` and `pack-data`
-subcommands of `vae_teb_tpu.cli`, with the same flags and defaults. `train`,
-`test` and `build-data` run on the CUDA card unless `--device` names
-another; `stats` and `pack-data` are host passes over HDF5 files (h5py).
-`export` waits for its slice of the port.
+Port of the `train`, `test`, `export`, `build-data`, `stats` and
+`pack-data` subcommands of `vae_teb_tpu.cli`, with the same flags and
+defaults. `train`, `test`, `export` and `build-data` run on the CUDA card
+unless `--device` names another; `stats` and `pack-data` are host passes
+over HDF5 files (h5py). `export` writes a `torch.export` program
+(`serve.export_inference` / `export_source_stream`), traced on the device
+it will run on: `--platforms` (cuda or cpu) names that device as
+`--device` does, where the JAX package names the platforms it lowers for.
 
 `cmd_train` reads the YAML config (and, with --device-normalize, the
 statistics file) and calls `run_training`, which a program may call
@@ -275,6 +282,49 @@ def cmd_test(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Trace the best checkpoint (fresh seeded weights without one, with a
+    warning) into a serving artifact: the deterministic forward from
+    coefficients (a symbolic batch unless --static-batch), or with
+    --stream one source-encode step of --chunk-len steps at a static batch
+    (--static-batch, default 1); weights as argument unless
+    --bundle-params."""
+    from . import serve
+    from .init import init_parameters
+    from .train import Checkpointer, load_config
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config, root=args.root)
+    model = init_parameters(make_model(cfg, args.seq_len),
+                            seed=cfg.trainer.seed)
+    ckpt_dir = args.checkpoint or cfg.checkpoints.test_checkpoint_path
+    if ckpt_dir:
+        ckpt = Checkpointer(ckpt_dir, keep=cfg.checkpoints.keep)
+        model.load_state_dict(ckpt.restore(best=True)["model"])
+    else:
+        print("warning: no checkpoint given, exporting fresh weights")
+    b = args.static_batch or 1
+    if args.stream:
+        program = serve.export_source_stream(
+            model, batch_size=b, chunk_len=args.chunk_len,
+            n_channels=cfg.model.input_channels,
+            bundle_params=args.bundle_params, device=device)
+    else:
+        m = cfg.model
+        batch = {k: np.zeros((b, args.seq_len, c), np.float32)
+                 for k, c in zip(serve.COEFF_KEYS, (m.n_scattering, m.n_phase,
+                                                    m.input_channels))}
+        program = serve.export_inference(
+            model, batch, batch_polymorphic=args.static_batch is None,
+            bundle_params=args.bundle_params, device=device)
+    n = serve.save_artifact(program, args.out)
+    kind = "stream step" if args.stream else "inference"
+    print(f"exported {kind} ({n / 1e6:.1f} MB, device={device}, "
+          f"{'bundled weights' if args.bundle_params else 'weights as argument'}"
+          f") -> {args.out}")
+    return 0
+
+
 def cmd_build_data(args) -> int:
     """Synthetic dataset through the frontend on `--device` (the card by
     default): the exact fp32 transform unless --reduced-frontend or
@@ -384,6 +434,35 @@ def main(argv: Optional[list] = None) -> int:
                     help="torch device to evaluate on (default: the CUDA "
                          "card)")
     pe.set_defaults(fn=cmd_test)
+
+    px = sub.add_parser("export",
+                        help="trace a checkpoint into a torch.export serving "
+                             "artifact")
+    px.add_argument("--config", required=True)
+    px.add_argument("--root", default=None)
+    px.add_argument("--checkpoint", default=None)
+    px.add_argument("--out", required=True, help="artifact file path")
+    px.add_argument("--seq-len", type=int, default=300,
+                    help="decimated sequence length (default: production "
+                         "300)")
+    px.add_argument("--static-batch", type=int, default=None, metavar="B",
+                    help="export at a fixed batch size (default: symbolic "
+                         "batch - one artifact serves every size)")
+    px.add_argument("--platforms", dest="device", choices=("cuda", "cpu"),
+                    help="JAX's flag, here the one device the program is "
+                         "traced for and runs on: the same as --device")
+    px.add_argument("--bundle-params", action="store_true",
+                    help="keep the weights in the artifact (self-contained "
+                         "file) instead of taking them as an argument")
+    px.add_argument("--stream", action="store_true",
+                    help="export the incremental source-encode step "
+                         "instead of the full forward")
+    px.add_argument("--chunk-len", type=int, default=1,
+                    help="chunk length for --stream (default 1: per-"
+                         "timestep serving)")
+    px.add_argument("--device", default=None,
+                    help="torch device to trace on (default: the CUDA card)")
+    px.set_defaults(fn=cmd_export)
 
     pb = sub.add_parser("build-data", help="build a synthetic dataset")
     pb.add_argument("--out", required=True)

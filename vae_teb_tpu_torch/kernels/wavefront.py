@@ -10,15 +10,21 @@ anything else raises. Each kernel launch adds one to its wrapper's count:
 by name (`wavefront_fwd_res_bf16`, ...), in the wrapper's `entry_launches`
 Counter.
 
+The serving forward is also the operator
+`torch.ops.vae_teb_tpu_torch.wavefront_fwd` (`wavefront_fwd_op`), which
+`wavefront_fwd` calls: `torch.export` keeps it as one node, and an exported
+program dispatches it by device when it runs, counting its launches as the
+wrapper does.
+
 The kernels run one thread-block cluster of U CTAs (one per unit) per
 group of M batch rows, each CTA holding its unit's weight blocks in shared
 memory for all K steps (`unit_blocks`, `_launch_plan`).
 
 `wavefront_recurrence` is the differentiable recurrence the model calls:
-the forward alone when no gradient is wanted, otherwise
-`WavefrontFunction`, whose backward runs the reverse wavefront and forms
-the weight gradients outside the recurrence, as the JAX package's custom VJP does
-(`vae_teb_tpu/models/blocks.py::_wavefront_core`).
+the serving forward alone (the operator) when no gradient is wanted,
+otherwise `WavefrontFunction`, whose backward runs the reverse wavefront
+and forms the weight gradients outside the recurrence, as the JAX
+package's custom VJP does (`vae_teb_tpu/models/blocks.py::_wavefront_core`).
 """
 
 from __future__ import annotations
@@ -244,23 +250,11 @@ def _device_type(name: str, x: torch.Tensor) -> str:
     return x.device.type
 
 
-def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
-                  xs_wave: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-                  lvec: torch.Tensor, S: int, with_residuals: bool = False
-                  ) -> Tuple[torch.Tensor, ...]:
-    """Forward wavefront: (h_seq (K, B, UH), h_fin, c_fin (B, UH)), and with
-    with_residuals also (gates_seq (K, B, 4UH), c_seq (K, B, UH)).
-
-    Arguments as in `wavefront_fwd_plain`. On CUDA all tensors must be
-    contiguous, on one device, of one storage dtype (float32 or bfloat16),
-    with lvec int32, and the kernel reads only the blocks of W_eff that
-    `_wavefront_pack` fills (`unit_blocks`): W_eff must be block-bidiagonal
-    as that function makes it, and its other entries are ignored. Records
-    no autograd graph (see `wavefront_recurrence`).
-    """
-    if _device_type("wavefront_fwd", xs_wave) == "cpu":
-        return wavefront_fwd_plain(W_eff, b_packed, xs_wave, h0, c0, lvec, S,
-                                   with_residuals)
+def _fwd_cuda(W_eff: torch.Tensor, b_packed: torch.Tensor,
+              xs_wave: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+              lvec: torch.Tensor, S: int, with_residuals: bool
+              ) -> Tuple[torch.Tensor, ...]:
+    """Launch the forward kernel on CUDA tensors and count the launch."""
     tensors = (W_eff, b_packed, xs_wave, h0, c0)
     plan = _check("wavefront_fwd", tensors, lvec, xs_wave)
     K, B, G = xs_wave.shape
@@ -295,6 +289,58 @@ def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
         return h_seq, h_fin, c_fin, gates_seq, c_seq
     wavefront_fwd.launches += 1
     return h_seq, h_fin, c_fin
+
+
+@torch.library.custom_op("vae_teb_tpu_torch::wavefront_fwd", mutates_args=())
+def wavefront_fwd_op(W_eff: torch.Tensor, b_packed: torch.Tensor,
+                     xs_wave: torch.Tensor, h0: torch.Tensor,
+                     c0: torch.Tensor, lvec: torch.Tensor, S: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The serving forward as one operator, `vae_teb_tpu_torch::wavefront_fwd`:
+    (h_seq (K, B, UH), h_fin, c_fin (B, UH)).
+
+    `torch.export` keeps it as one node of the graph whatever K is (its
+    fake implementation gives the output shapes from the inputs', a
+    symbolic batch included), and a program that holds it picks the
+    implementation by device when it runs: the plain version for CPU
+    tensors, the kernel for CUDA tensors (counted in
+    `wavefront_fwd.launches`), and raises for any other device. Loading
+    such a program needs this module imported, which registers the op.
+    """
+    if _device_type("wavefront_fwd", xs_wave) == "cpu":
+        return wavefront_fwd_plain(W_eff, b_packed, xs_wave, h0, c0, lvec, S)
+    return _fwd_cuda(W_eff, b_packed, xs_wave, h0, c0, lvec, S, False)
+
+
+@wavefront_fwd_op.register_fake
+def _wavefront_fwd_fake(W_eff, b_packed, xs_wave, h0, c0, lvec, S):
+    K, B, G = xs_wave.shape
+    new = lambda *shape: xs_wave.new_empty(shape)
+    return new(K, B, G // 4), new(B, G // 4), new(B, G // 4)
+
+
+def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
+                  xs_wave: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                  lvec: torch.Tensor, S: int, with_residuals: bool = False
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Forward wavefront: (h_seq (K, B, UH), h_fin, c_fin (B, UH)), and with
+    with_residuals also (gates_seq (K, B, 4UH), c_seq (K, B, UH)).
+
+    Arguments as in `wavefront_fwd_plain`. On CUDA all tensors must be
+    contiguous, on one device, of one storage dtype (float32 or bfloat16),
+    with lvec int32, and the kernel reads only the blocks of W_eff that
+    `_wavefront_pack` fills (`unit_blocks`): W_eff must be block-bidiagonal
+    as that function makes it, and its other entries are ignored. The
+    serving variant (no residuals) is the operator `wavefront_fwd_op`.
+    Records no autograd graph (see `wavefront_recurrence`).
+    """
+    device = _device_type("wavefront_fwd", xs_wave)   # raises off CPU/CUDA
+    if not with_residuals:
+        return wavefront_fwd_op(W_eff, b_packed, xs_wave, h0, c0, lvec, S)
+    if device == "cpu":
+        return wavefront_fwd_plain(W_eff, b_packed, xs_wave, h0, c0, lvec, S,
+                                   True)
+    return _fwd_cuda(W_eff, b_packed, xs_wave, h0, c0, lvec, S, True)
 
 
 wavefront_fwd.launches = 0
@@ -398,7 +444,8 @@ def wavefront_recurrence(W_eff: torch.Tensor, b_packed: torch.Tensor,
     """The differentiable forward wavefront: (h_seq, h_fin, c_fin).
 
     Without a gradient to record (inference mode, no_grad, or no input that
-    requires one) this is the residual-free `wavefront_fwd`; otherwise
+    requires one) this is the residual-free `wavefront_fwd`, the operator
+    `wavefront_fwd_op`; otherwise
     `WavefrontFunction`, which stores the residuals for its backward.
     """
     tensors = (W_eff, b_packed, xs_wave, h0, c0)

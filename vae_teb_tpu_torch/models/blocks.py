@@ -250,8 +250,16 @@ class CausalConv1d(nn.Module):
         self.pad = kernel_size - 1
         self.conv = Conv1d(in_features, features, kernel_size, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_bsc(self.conv, F.pad(x, (0, 0, self.pad, 0)))
+    def forward(self, x: torch.Tensor,
+                carry: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """carry: the (B, k-1, C) tail of the preceding chunk's input, which
+        streaming puts in place of the zero left pad (cast to x's dtype), so
+        that chunks in turn give what one full-sequence call gives."""
+        if carry is None:
+            x = F.pad(x, (0, 0, self.pad, 0))
+        else:
+            x = torch.cat([carry.to(x.dtype), x], dim=1)
+        return _conv_bsc(self.conv, x)
 
 
 class CausalConvBlock(nn.Module):
@@ -263,8 +271,9 @@ class CausalConvBlock(nn.Module):
         self.conv = CausalConv1d(in_features, features, kernel_size, dtype)
         self.bn = BatchNorm(features, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x: torch.Tensor,
+                carry: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x, carry)))
 
 
 class ReflectConvBlock(nn.Module):
@@ -417,15 +426,16 @@ def run_lstm_streams(streams: Sequence[LSTMStream],
 
 
 class LSTM(nn.Module):
-    """Multi-layer unidirectional LSTM over (B, S, C), gate order [i, f, g, o],
-    zero initial state. Calling it prepares an LSTMStream (the JAX package's
-    `prepare=True`); `run_lstm_streams` runs the recurrence.
+    """Multi-layer unidirectional LSTM over (B, S, C), gate order [i, f, g, o].
+    Calling it prepares an LSTMStream (the JAX package's `prepare=True`);
+    `run_lstm_streams` runs the recurrence and returns the final state in
+    the layout `initial_state` takes, so one call chains into the next.
 
     Kernels keep the flax layout: w_ih_l (in, 4H), w_hh_l (H, 4H), bias_l
     (4H,), so a flax checkpoint maps over unchanged and the wavefront packs
     exactly as the JAX package does. With a compute dtype the input,
-    weights, biases and zero state are cast to it, so the recurrence runs on
-    that storage type (the kernels' `*_bf16` entry points).
+    weights, biases and initial state are cast to it, so the recurrence runs
+    on that storage type (the kernels' `*_bf16` entry points).
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
@@ -447,7 +457,12 @@ class LSTM(nn.Module):
     def _params(self, name: str) -> List[torch.Tensor]:
         return [getattr(self, f"{name}_{l}") for l in range(self.num_layers)]
 
-    def forward(self, x: torch.Tensor) -> LSTMStream:
+    def forward(self, x: torch.Tensor,
+                initial_state: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                = None) -> LSTMStream:
+        """initial_state: (h, c), each (num_layers, B, H), the state carried
+        from a preceding chunk; None starts from zeros (the full-sequence
+        convention)."""
         w_ih, w_hh, biases = (self._params("w_ih"), self._params("w_hh"),
                               self._params("bias"))
         if self.dtype is not None:
@@ -456,5 +471,11 @@ class LSTM(nn.Module):
                                     for ws in (w_ih, w_hh, biases)))
         # hoist layer 0's input projection out of the recurrence
         x_proj = x @ w_ih[0] + biases[0]
-        zeros = (x.new_zeros((x.shape[0], self.hidden_size)),) * self.num_layers
-        return LSTMStream(x_proj, w_ih, w_hh, biases, (zeros, zeros))
+        if initial_state is None:
+            zeros = (x.new_zeros((x.shape[0], self.hidden_size)),
+                     ) * self.num_layers
+            init = (zeros, zeros)
+        else:
+            init = tuple(tuple(s.to(x.dtype).unbind(0))
+                         for s in initial_state)
+        return LSTMStream(x_proj, w_ih, w_hh, biases, init)

@@ -16,7 +16,10 @@ two dense heads are sized from `seq_len` times the decimation factor (300
 x 16 in production: 4800-wide). The three latent widths (source, target,
 z) and the decimation factor (a power of two up to 16) are the JAX
 model's fields, with its defaults (LATENT_DIM, UPSAMPLE); `decode(z)` runs
-the decoder alone. The module's mode is flax's `train`
+the decoder alone. The source encoder is causal end to end, so
+`encode_source_stream` encodes it chunk by chunk from a carried state
+(`source_stream_init_state`: the causal convs' input tails and the LSTM's
+h and c) and chained chunks give the full-sequence encoding. The module's mode is flax's `train`
 flag: in training mode (`model.train()`) BatchNorm normalizes with batch
 statistics and updates its running averages; in eval mode it uses the
 running averages. Sampling of z is a separate switch (`deterministic`), as
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -101,6 +105,32 @@ def compute_loss(outputs: Dict, y_st, y_ph, y_raw, beta: float = 1.0,
             "total_loss": losses["total_decoder_loss"] + beta * kld}
 
 
+def stitch_predictions(x: torch.Tensor, stride: int = 16,
+                       new_len: int = 4800
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Overlap-average per-step windows onto the raw-signal grid.
+
+    x: (B, N, C) per-step length-C predictions placed at offsets i*stride.
+    Returns (stacked (B, K, new_len) with NaN where nothing lands, their
+    NaN-mean (B, new_len), 0 where nothing lands), K = ceil(C / stride):
+    output position j receives step i = j // stride - k at column
+    j % stride + stride * k, for k < K.
+    """
+    b, n, c = x.shape
+    k_max = (c + stride - 1) // stride
+    j = np.arange(new_len)
+    ks = np.arange(k_max)[:, None]
+    i_idx = j[None, :] // stride - ks                      # (K, new_len)
+    c_idx = j[None, :] % stride + stride * ks
+    valid = (i_idx >= 0) & (i_idx < n) & (c_idx < c)
+    index = lambda a: torch.as_tensor(a, device=x.device)
+    vals = x[:, index(np.clip(i_idx, 0, n - 1)), index(np.clip(c_idx, 0, c - 1))]
+    mask = index(valid)[None]
+    stacked = torch.where(mask, vals, torch.nan)
+    mean = torch.where(mask, vals, 0.0).sum(1) / mask.sum(1).clamp_min(1)
+    return stacked, mean
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
@@ -161,14 +191,40 @@ class TargetEncoder(nn.Module):
         logvar = self.logvar_layer(x)
         return mu, torch.clamp(logvar, -10.0, 10.0)
 
+    def forward(self, y_st, y_ph,
+                recurrence: Callable = wavefront_recurrence):
+        """The encoder alone, its LSTM as one wavefront through
+        `recurrence`: (mu, logvar_full)."""
+        ((x, _),) = run_lstm_streams([self.lstm(self.pre_lstm(y_st, y_ph))],
+                                     recurrence)
+        return self.post_lstm(x)
+
 
 SOURCE_CONV_KERNELS = (3, 5, 7)
 SOURCE_CONV_WIDTH = 32
 
 
+def source_stream_init_state(batch_size: int, lstm_num_layers: int = 4,
+                             lstm_hidden_dim: int = 64, dtype: Dtype = None,
+                             device=None) -> Dict:
+    """The zero state `SourceEncoder.stream` starts from, on `device`:
+    {"conv_tails": one (B, k-1, 32) tail per causal conv (the zero left pad
+    of a full-sequence call), "h", "c": the LSTM's (num_layers, B, H)}, in
+    the compute dtype (float32 when None)."""
+    dt = dtype or torch.float32
+    tails = tuple(torch.zeros((batch_size, k - 1, SOURCE_CONV_WIDTH),
+                              dtype=dt, device=device)
+                  for k in SOURCE_CONV_KERNELS)
+    h = torch.zeros((lstm_num_layers, batch_size, lstm_hidden_dim), dtype=dt,
+                    device=device)
+    return {"conv_tails": tails, "h": h, "c": torch.zeros_like(h)}
+
+
 class SourceEncoder(nn.Module):
     """x_ph -> mu_x: MLP channel reduction, causal convs, causal LSTM
-    (run by SeqVaeTeb.encode between pre_lstm and head)."""
+    (run by SeqVaeTeb.encode between pre_lstm and head, or alone by
+    `forward` and `stream`). Everything is causal: the encoding at step t
+    sees only x[<= t], which is what makes `stream` possible."""
 
     def __init__(self, input_channels: int = 130, lstm_hidden_dim: int = 64,
                  lstm_num_layers: int = 4, dtype: Dtype = None,
@@ -189,14 +245,60 @@ class SourceEncoder(nn.Module):
         self.mu_layer = ResidualMLP(32, geometric_schedule(32, latent_dim, 4),
                                     final_activation=False, dtype=dt)
 
-    def pre_lstm(self, x):
-        x = self.mlp(x)
-        for conv in (self.conv_0, self.conv_1, self.conv_2):
-            x = conv(x)
-        return self.fused_norm(x)
+    def pre_lstm(self, x, conv_tails: Optional[Tuple] = None):
+        """MLP, the three causal convs and the norm: the LSTM's input. With
+        `conv_tails` (streaming), each conv takes its carried tail in place
+        of the zero left pad, and the call returns (input, the new tails)."""
+        y = self.mlp(x)
+        convs = (self.conv_0, self.conv_1, self.conv_2)
+        if conv_tails is None:
+            for conv in convs:
+                y = conv(y)
+            return self.fused_norm(y)
+        tails = []
+        for conv, tail in zip(convs, conv_tails):
+            n = tail.shape[1]     # the new tail: the last k-1 rows seen
+            tails.append(y[:, y.shape[1] - n:] if y.shape[1] >= n else
+                         torch.cat([tail[:, y.shape[1]:].to(y.dtype), y], 1))
+            y = conv(y, tail)
+        return self.fused_norm(y), tuple(tails)
 
     def head(self, x):
         return self.mu_layer(self.pre_output(self.lstm_norm(x)))
+
+    def forward(self, x, recurrence: Callable = wavefront_recurrence):
+        """The encoder alone, its LSTM as one wavefront through
+        `recurrence`: mu_x (B, S, latent)."""
+        ((y, _),) = run_lstm_streams([self.lstm(self.pre_lstm(x))],
+                                     recurrence)
+        return self.head(y)
+
+    def stream(self, x, state: Dict,
+               recurrence: Callable = wavefront_recurrence
+               ) -> Tuple[torch.Tensor, Dict]:
+        """One chunk x (B, S_chunk, C) of a causal encode, from the state
+        the previous chunk left (`source_stream_init_state` for the first):
+        (mu_x of the chunk, the new state). Chained chunks give what
+        `forward` gives on their concatenation. Eval mode only: BatchNorm
+        normalizes with its running statistics."""
+        if self.training:
+            raise RuntimeError("stream needs eval mode (BatchNorm on running "
+                               "statistics): call .eval() first")
+        y, tails = self.pre_lstm(x, state["conv_tails"])
+        stream = self.lstm(y, (state["h"], state["c"]))
+        ((y, (h, c)),) = run_lstm_streams([stream], recurrence)
+        return self.head(y), {"conv_tails": tails, "h": h, "c": c}
+
+    def get_sequence_encoding(self, x, timestep: int,
+                              recurrence: Callable = wavefront_recurrence):
+        """The causal encoding up to `timestep` inclusive, as the reference
+        computes it: the full forward, sliced (`stream` costs a chunk, not
+        the history). Eval mode only, as `stream`."""
+        if self.training:
+            raise RuntimeError("get_sequence_encoding needs eval mode: call "
+                               ".eval() first")
+        timestep = min(timestep, x.shape[1] - 1)
+        return self(x, recurrence)[:, :timestep + 1]
 
 
 class ConditionalEncoder(nn.Module):
@@ -362,6 +464,30 @@ class SeqVaeTeb(nn.Module):
         """The decoder alone (latent interpolation): z (B, S, latent_dim_z)
         -> (linear_output, raw mu, raw logvar), in the module's mode."""
         return self.decoder(z)
+
+    def encode_source_stream(self, x_chunk, state: Dict
+                             ) -> Tuple[torch.Tensor, Dict]:
+        """One chunk of the causal source encode (`SourceEncoder.stream`
+        through `self.recurrence`): (mu_x chunk, new state); the first
+        state is `init_source_stream_state(batch_size)`."""
+        return self.source_encoder.stream(x_chunk, state, self.recurrence)
+
+    def init_source_stream_state(self, batch_size: int, device=None) -> Dict:
+        """The zero state of `encode_source_stream`, in the compute dtype,
+        on `device` (the model's parameters' device when None)."""
+        lstm = self.source_encoder.lstm
+        if device is None:
+            device = lstm.w_hh_0.device
+        return source_stream_init_state(batch_size, lstm.num_layers,
+                                        lstm.hidden_size, self.dtype, device)
+
+    def get_sequence_encoding(self, x_ph, timestep: int):
+        """The causal source encoding up to `timestep` inclusive by a full
+        forward, sliced (the reference's API)."""
+        return self.source_encoder.get_sequence_encoding(x_ph, timestep,
+                                                         self.recurrence)
+
+    get_predictions = staticmethod(stitch_predictions)
 
     def measure_transfer_entropy(self, y_st, y_ph, x_ph):
         """TE(source -> latent) = KL(q(z|x,y) || p(z|y)) per step and dim."""
