@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, training step, training entry
-point, exact frontend, dataset ETL and evaluation on an NVIDIA GPU.
+point, exact frontend, dataset ETL, evaluation, streaming, and the
+forecast, predict-st and classifier families on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
@@ -13,8 +14,9 @@ two versions compare on one card.
 
 Phases, each of which raises on failure (exit code 1):
   1. device: CUDA must be present (exit 2 otherwise, before any result);
-  2. build the wavefront kernels (vae_teb_tpu_torch/kernels/wavefront_fwd.cu
-     and wavefront_bwd.cu, one nvcc each, in parallel) for sm_90a; print
+  2. build the wavefront kernels (vae_teb_tpu_torch/kernels/wavefront_fwd.cu,
+     wavefront_bwd.cu, wavefront_grid_fwd.cu and wavefront_grid_bwd.cu,
+     one nvcc each, in parallel) for sm_90a; print
      each instantiation's ptxas registers and spills, and the launch plan
      of each main-path batch (rows per cluster, clusters of 8 CTAs, shared
      memory) with the clusters the card holds at once;
@@ -114,11 +116,36 @@ Phases, each of which raises on failure (exit code 1):
      launch per call), the artifacts' bytes, load time and B=32 latency
      against the live model; export_source_stream at B=32, chunk 1,
      chained 30 steps against the session (1e-6 of max);
- 12. print the card's nvidia-smi name and power limit, one JSON line for
+ 12. the shapes the cluster kernels refuse, on the grid kernels, and the
+     model families that need them: (a) the grid kernels (serving,
+     residual, reverse) against their plain versions at (U, H) = (3, 256)
+     and (2, 256) (the decoders' LSTMs), (8, 128) and (10, 64), B=32,
+     S=300, fp32 and bf16, at phase 3's bars, with their launch plans
+     (columns a CTA, CTAs), CUDA-event times, bounds and the cuDNN
+     yardstick (held at 1e-4 of max in fp32); (b) full-width
+     SeqVaeTebForecast(decoder_type="direct") on seeded raw windows
+     through the production frontend: 4 train steps at B=32 (forward,
+     compute_loss(beta=1e-5), backward, ClippedAdamW), each launching the
+     encoders' cluster kernels and the decoder LSTM's grid kernels once
+     each way, a B=8 step's gradients against the plain reverse wavefront
+     behind the same forward (1e-4 per leaf), a B=2 step against the CPU
+     (phase 5's bars), step times; (c) the conv-window decoder at B=8,
+     forward and loss against the CPU; (d) full-width SeqVaeTebPredictSt
+     (horizon 30): (b)'s step and checks, then prediction_accuracy_test
+     (prediction_idx 30) on 8 windows; (e) full-width SeqVaeTebClassifier
+     with ClassifierTrainer at B=32: transfer_params from the seeded
+     SeqVaeTeb, 10 frozen steps on a separable labelling (loss falling,
+     one serving launch and no backward launch a step, the frozen VAE's
+     weights moving by optax's decay alone), predict, one joint step
+     (freeze_vae=False, vae_loss_weight 0.1: one residual forward and one
+     reverse launch), step times;
+ 13. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start, the serving forward's launches
-     in phase 10, and in phase 11 the sessions' and the loaded programs'),
-     and last {"ok": true, "device": {...}}.
+     in phase 10, in phase 11 the sessions' and the loaded programs', and
+     phase 12's model runs'; the grid kernels' rows at (3, 256), B=32,
+     fp32, with their errors at every phase-12 shape), and last {"ok":
+     true, "device": {...}}.
 """
 
 import json
@@ -415,24 +442,30 @@ KERNEL_CASES = (((4, 4), 32, torch.float32, True),
                 ((4, 4), 1, torch.float32, False))
 
 
-def check_kernels(device, S=300, H=64):
+def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
+                  library_bars=LIBRARY_REL_TOL):
     """The three kernels against their plain versions on the card, with
-    times, bounds and the cuDNN yardstick; returns {(kind, depths, B,
-    dtype): (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}."""
+    times, bounds and the cuDNN yardstick (held to the kernel at
+    `library_bars[dtype]`, reported only for a dtype it does not name);
+    prints each case's launch plan; returns {(kind, depths, B, dtype):
+    (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}."""
     from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
                                            wavefront_fwd, wavefront_fwd_plain)
+    from vae_teb_tpu_torch.kernels.wavefront import _check
     gen = torch.Generator().manual_seed(4)
     results, failed = {}, []
-    for depths, b, dtype, timed in KERNEL_CASES:
+    for depths, b, dtype, timed in cases:
         fp32 = dtype == torch.float32
         tol = FP32_TOL if fp32 else BF16_TOL
         btol = BWD_FP32_TOL if fp32 else BWD_BF16_TOL
         name = str(dtype)[6:]
-        label = f"{'x'.join(map(str, depths))} layers B={b} S={S} {name}"
+        label = (f"{'x'.join(map(str, depths))} layers H={H} B={b} S={S} "
+                 f"{name}")
         args = recurrence_inputs(gen, b, S, H, depths, dtype, device)
         W, _, xs, h0, c0, lvec = args
         K, U = xs.shape[0], lvec.numel()
         n_feed = int((lvec > 0).sum())
+        log(f"{label}: launch plan {_check('plan', args[:5], lvec, xs)}")
         time_pair = (lambda f, g: (cuda_time_ms(f), cuda_time_ms(g, PLAIN_RUNS))
                      ) if timed else (lambda f, g: (None, None))
 
@@ -499,10 +532,10 @@ def check_kernels(device, S=300, H=64):
         try:
             streams = cudnn_streams(args, depths, S)
             lib_err = cudnn_check(streams, depths, *fwd_out, S)
-            lib_tol = LIBRARY_REL_TOL[dtype]
+            lib_tol = library_bars.get(dtype)
             log(f"cuDNN LSTM yardstick {label}: ys, h_n, c_n against the "
                 f"kernel max-abs/max {lib_err!r} (tol {lib_tol})")
-            if not lib_err <= lib_tol:
+            if lib_tol is not None and not lib_err <= lib_tol:
                 failed.append(f"cuDNN yardstick {label}: {lib_err} > "
                               f"{lib_tol}")
             lib_fwd, lib_bwd = cudnn_times(streams, gen)
@@ -1994,6 +2027,314 @@ def stream_export_phase(device):
     return stream_launches, export_launches
 
 
+# Phase 12: the grid kernels at the shapes the cluster kernels refuse,
+# (depths, H): the forecast decoder's LSTM(256, 3), the predict-st
+# decoder's LSTM(256, 2), two 4-layer H=128 encoders and two 5-layer H=64
+# encoders; each at B=32, S=300 in fp32 and bf16, all timed
+GRID_KERNEL_CASES = (((3,), 256), ((2,), 256), ((4, 4), 128), ((5, 5), 64))
+VARIANT_STEPS = 4        # timed train steps of each variant at B=32
+CLASSIFIER_STEPS = 10    # frozen classifier steps on a separable labelling
+CLASSIFIER_LR = 3e-3     # the JAX package's own trainer test's rate
+
+
+def check_grid_kernels(device, S=300):
+    """Phase 12 (a): the grid kernels against their plain versions, with
+    their plans, CUDA-event times, bounds and the cuDNN yardstick (held to
+    the kernel at 1e-4 of max in fp32, its distance reported in bf16).
+    Returns {(depths, H): check_kernels' results}."""
+    out = {}
+    for depths, H in GRID_KERNEL_CASES:
+        cases = tuple((depths, 32, dtype, True)
+                      for dtype in (torch.float32, torch.bfloat16))
+        out[(depths, H)] = check_kernels(
+            device, S, H, cases, {torch.float32: LIBRARY_REL_TOL[torch.float32]})
+    return out
+
+
+def _entry_counts():
+    from vae_teb_tpu_torch.kernels import wavefront_bwd, wavefront_fwd
+    return Counter(wavefront_fwd.entry_launches) + Counter(
+        wavefront_bwd.entry_launches)
+
+
+def _launched(fn):
+    """(fn(), the kernel entry points it launched, by count)."""
+    before = _entry_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, dict(_entry_counts() - before)
+
+
+def variant_step(model, optimizer, batch, loss_fn, eps):
+    """One train step of a forecast or predict-st model: the train-mode
+    forward with the given noise, loss_fn(out, batch), backward, and the
+    clipped AdamW update. Returns the losses as floats."""
+    out = model.train()(batch["fhr_st"], batch["fhr_ph"], batch["fhr_up_ph"],
+                        deterministic=False, eps=eps)
+    losses = loss_fn(out, batch)
+    optimizer.zero_grad(set_to_none=True)
+    losses["total_loss"].backward()
+    optimizer.step()
+    return {k: v.item() for k, v in losses.items()}
+
+
+def variant_phase(device, name, make_model, loss_fn, frontend, gen, expect):
+    """Phase 12 (b) and (d): a full-width variant on seeded raw windows
+    through the production frontend. VARIANT_STEPS train steps at B=32
+    (each launching `expect`: one cluster launch for the encoders and one
+    grid launch for the decoder's LSTM, each way), finite losses, median
+    step time; from the seeded weights, one B=8 step's gradients through
+    the kernels against the plain reverse wavefront behind the same
+    forward (phase 5's bar, per leaf), and one B=2 step against the CPU
+    on identical coefficients and noise (phase 5's bars). Returns (the
+    trained model, the fixed batch, the launches of the steps)."""
+    import copy
+    from vae_teb_tpu_torch.kernels import wavefront_bwd, wavefront_bwd_plain
+    from vae_teb_tpu_torch.train import make_optimizer
+    seeded = make_model()
+    model = copy.deepcopy(seeded).to(device)
+    opt = lambda m: make_optimizer(list(m.parameters()), 1e-4, 0.5, 1e-4)
+    optimizer = opt(model)
+
+    def batch_of(b):
+        x = torch.randn((2, b, N), generator=gen, device=device)
+        coeffs = frontend(x[0], x[1])
+        batch = dict(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs))
+        S = coeffs[0].shape[1]
+        batch["fhr"] = torch.randn((b, 16 * S), generator=gen, device=device)
+        return batch, torch.randn((b, S, 32), generator=gen, device=device)
+
+    failed = []
+    batch, eps = batch_of(32)
+    times, launched_total = [], Counter()
+    for step in range(VARIANT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses, launched = _launched(
+            lambda: variant_step(model, optimizer, batch, loss_fn, eps))
+        if step:
+            times.append(time.perf_counter() - t)
+        launched_total.update(launched)
+        log(f"{name} B=32 step {step}: " + ", ".join(
+            f"{k} {v!r}" for k, v in sorted(losses.items()))
+            + f"; launched {launched}")
+        if launched != expect:
+            failed.append(f"{name} step {step} launched {launched}, "
+                          f"expected {expect}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            failed.append(f"{name} step {step}: non-finite losses {losses}")
+    log(f"{name} B=32: median step {statistics.median(times) * 1e3!r} ms "
+        f"(forward, loss, backward, AdamW; without the frontend) over "
+        f"{len(times)} steps after a warm-up")
+
+    small, eps8 = batch_of(8)
+    wavefront_module = sys.modules["vae_teb_tpu_torch.kernels.wavefront"]
+    grads = {}
+    for kind in ("kernels", "plain backward"):
+        m = copy.deepcopy(seeded).to(device)
+        if kind == "plain backward":
+            wavefront_module.wavefront_bwd = wavefront_bwd_plain
+        try:
+            variant_step(m, opt(m), small, loss_fn, eps8)
+        finally:
+            wavefront_module.wavefront_bwd = wavefront_bwd
+        grads[kind] = {k: p.grad for k, p in m.named_parameters()}
+        del m
+    worst, leaf, l2 = grad_report(grads["kernels"], grads["plain backward"])
+    log(f"{name} step kernels vs plain backward (B=8, one forward): "
+        f"{len(grads['kernels'])} gradient leaves, worst max-abs/max "
+        f"{worst!r} ({leaf}; bar {GRAD_REL_TOL}), rel-L2 {l2!r}")
+    if not (worst <= GRAD_REL_TOL and l2 <= GRAD_REL_TOL):
+        failed.append(f"{name} kernels vs plain backward: {worst} ({leaf}), "
+                      f"rel-L2 {l2}")
+    del grads
+
+    two, eps2 = batch_of(2)
+    gpu_model = copy.deepcopy(seeded).to(device)
+    cpu_model = copy.deepcopy(seeded)
+    l_gpu = variant_step(gpu_model, opt(gpu_model), two, loss_fn, eps2)
+    l_cpu = variant_step(cpu_model, opt(cpu_model),
+                         {k: v.cpu() for k, v in two.items()}, loss_fn,
+                         eps2.cpu())
+    loss_err = max(abs(l_gpu[k] / l_cpu[k] - 1) for k in l_cpu if l_cpu[k])
+    worst, leaf, l2 = grad_report(
+        {k: p.grad.cpu() for k, p in gpu_model.named_parameters()},
+        {k: p.grad for k, p in cpu_model.named_parameters()})
+    log(f"{name} step card vs CPU (B=2, identical coefficients and noise): "
+        f"losses rel {loss_err!r} (bar {METRIC_REL_TOL}); gradients worst "
+        f"max-abs/max {worst!r} ({leaf}; bar {KINK_REL_TOL}), rel-L2 {l2!r} "
+        f"(bar {KINK_L2_TOL})")
+    if not (loss_err <= METRIC_REL_TOL and worst <= KINK_REL_TOL
+            and l2 <= KINK_L2_TOL):
+        failed.append(f"{name} card vs CPU: losses {loss_err}, gradients "
+                      f"{worst} ({leaf}), rel-L2 {l2}")
+    if failed:
+        raise AssertionError(f"{name} checks failed:\n" + "\n".join(failed))
+    return model, batch, launched_total
+
+
+def variants_phase(device):
+    """Phase 12 (b)-(e): the forecast, conv-window, predict-st and
+    classifier families at full width on the card. Returns the kernel
+    entry points' launches over the phase's model runs (the comparisons
+    with plain versions and the CPU excluded)."""
+    from vae_teb_tpu_torch import (SeqVaeTeb, WindowFrontend, init_parameters,
+                                   production_frontend)
+    from vae_teb_tpu_torch.eval import prediction_accuracy_test
+    from vae_teb_tpu_torch.models import (SeqVaeTebClassifier,
+                                          SeqVaeTebForecast,
+                                          SeqVaeTebPredictSt)
+    from vae_teb_tpu_torch.train import ClassifierConfig, ClassifierTrainer
+
+    frontend = WindowFrontend(production_frontend(device))
+    gen = torch.Generator(device=device).manual_seed(12)
+    grid = {"wavefront_fwd_res_f32": 1, "wavefront_grid_fwd_res_f32": 1,
+            "wavefront_bwd_f32": 1, "wavefront_grid_bwd_f32": 1}
+    main_path = Counter()
+
+    # (b) the direct-window forecaster
+    forecast_loss = lambda out, b: SeqVaeTebForecast.compute_loss(
+        out, b["fhr"], beta=1e-5)
+    model, batch, n = variant_phase(
+        device, "forecast (direct)",
+        lambda: init_parameters(SeqVaeTebForecast(
+            decoder_type="direct", prediction_horizon=480), seed=INIT_SEED),
+        forecast_loss, frontend, gen, grid)
+    main_path.update(n)
+    del model
+
+    # (c) the conv-window decoder at B=8: forward and loss, train mode
+    conv = init_parameters(SeqVaeTebForecast(decoder_type="conv_window"),
+                           seed=INIT_SEED)
+    small = {k: v[:8] for k, v in batch.items()}
+    S = batch["fhr_st"].shape[1]
+    eps = torch.randn((8, S, 32), generator=gen, device=device)
+
+    def conv_forward(m, b, e):
+        with torch.no_grad():
+            out = m.train()(b["fhr_st"], b["fhr_ph"], b["fhr_up_ph"],
+                            deterministic=False, eps=e)
+            return out, forecast_loss(out, b)
+    (out, losses), n = _launched(lambda: conv_forward(conv.to(device), small,
+                                                      eps))
+    main_path.update(n)
+    cpu_out, cpu_losses = conv_forward(
+        conv.cpu(), {k: v.cpu() for k, v in small.items()}, eps.cpu())
+    rel = max(((out[k].cpu() - cpu_out[k]).abs().max()
+               / cpu_out[k].abs().max().clamp_min(1e-30)).item()
+              for k in ("window_mu", "window_logvar"))
+    loss_rel = abs(losses["total_loss"].item()
+                   / cpu_losses["total_loss"].item() - 1)
+    finite = all(torch.isfinite(v).all().item() for v in out.values())
+    log(f"conv-window forecast B=8 (train mode): window_mu "
+        f"{tuple(out['window_mu'].shape)}, total_loss "
+        f"{losses['total_loss'].item()!r}, finite {finite}, launched {n}; "
+        f"against a CPU run, window outputs max-abs/max {rel!r} (bar "
+        f"{SERVE_REL_TOL}), total_loss rel {loss_rel!r} (bar "
+        f"{METRIC_REL_TOL})")
+    if (tuple(out["window_mu"].shape) != (8, S, 480) or not finite
+            or n != {"wavefront_fwd_f32": 1} or not rel <= SERVE_REL_TOL
+            or not loss_rel <= METRIC_REL_TOL):
+        raise AssertionError("conv-window forecast: bad shape, non-finite "
+                             f"values, launches {n} or card vs CPU {rel}, "
+                             f"{loss_rel}")
+    del conv, out, cpu_out
+
+    # (d) predict-st, then its chained-prediction battery on 8 windows
+    predict_loss = lambda out, b: SeqVaeTebPredictSt.compute_loss(
+        out, b["fhr_st"], b["fhr_ph"], beta=1e-5)
+    model, batch, n = variant_phase(
+        device, "predict-st",
+        lambda: init_parameters(SeqVaeTebPredictSt(prediction_horizon=30),
+                                seed=INIT_SEED),
+        predict_loss, frontend, gen, grid)
+    main_path.update(n)
+    windows = [{k: v[i:i + 4] for k, v in batch.items()} for i in (0, 4)]
+    t = time.perf_counter()
+    res, n = _launched(lambda: prediction_accuracy_test(model, windows,
+                                                        prediction_idx=30))
+    main_path.update(n)
+    finite = all(np.isfinite(v).all() for v in res.values())
+    log(f"prediction_accuracy_test (8 windows, prediction_idx 30): "
+        f"{time.perf_counter() - t:.3f} s, keys {sorted(res)}, "
+        f"scattering_mse {res['scattering_mse'].shape} mean "
+        f"{res['scattering_mse'].mean()!r}, phase_mse mean "
+        f"{res['phase_mse'].mean()!r}, finite {finite}, launched {n}")
+    if (not finite or res["scattering_mse"].shape
+            != (8, batch["fhr_st"].shape[2])
+            or n != {"wavefront_fwd_f32": 2, "wavefront_grid_fwd_f32": 2}):
+        raise AssertionError(f"prediction_accuracy_test: finite {finite}, "
+                             f"launches {n}")
+    del model
+
+    # (e) the classifier: a pretrained (seeded) VAE, frozen steps, a joint
+    # step, predict
+    vae = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
+    make = lambda freeze: SeqVaeTebClassifier(freeze_vae=freeze)
+    trainer = ClassifierTrainer(make(True), ClassifierConfig(
+        lr=CLASSIFIER_LR), device)
+    copied = trainer.init_state(vae.state_dict())
+    vae_keys = len(vae.state_dict())
+    log(f"classifier: transfer_params copied {len(copied)} of the VAE's "
+        f"{vae_keys} entries")
+    if len(copied) != vae_keys:
+        raise AssertionError("transfer_params missed VAE entries")
+    labels = torch.arange(32, device=device) % 2
+    cls_batch = {k: v.clone() for k, v in batch.items()}
+    cls_batch["fhr_up_ph"][labels == 1, :, :8] += 3.0   # separable
+    cls_batch["label"] = labels
+    frozen_before = trainer.model.vae_model.decoder.output_mu.dense[0
+                                                                    ].weight.clone()
+    losses, times = [], []
+    for step in range(CLASSIFIER_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m, n = _launched(lambda: trainer.train_step(cls_batch))
+        if step:
+            times.append(time.perf_counter() - t)
+        main_path.update(n)
+        losses.append(m["loss"].item())
+        if n != {"wavefront_fwd_f32": 1}:
+            raise AssertionError(f"frozen classifier step {step} launched "
+                                 f"{n}: the frozen VAE runs the serving "
+                                 "forward only")
+    cfg = trainer.config
+    decay = (frozen_before * (1 - cfg.lr * cfg.weight_decay) ** CLASSIFIER_STEPS
+             - trainer.model.vae_model.decoder.output_mu.dense[0].weight)
+    decay_err = (decay.abs().max() / frozen_before.abs().max()).item()
+    log(f"classifier frozen B=32: losses {losses}, median step "
+        f"{statistics.median(times) * 1e3!r} ms; a frozen VAE weight after "
+        f"{CLASSIFIER_STEPS} steps against p (1 - lr wd)^n, max-abs/max "
+        f"{decay_err!r}")
+    if not (losses[-1] < losses[0] and np.isfinite(losses).all()
+            and decay_err <= 1e-5):
+        raise AssertionError(f"frozen classifier: losses {losses}, decay "
+                             f"{decay_err}")
+    logits, probs = trainer.predict(cls_batch)
+    acc = float((probs.argmax(-1) == labels.cpu().numpy()).mean())
+    log(f"classifier predict B=32: probabilities {probs.shape}, accuracy "
+        f"{acc!r} on the training batch")
+    if probs.shape != (32, 2) or not np.isfinite(probs).all():
+        raise AssertionError("classifier predict: bad probabilities")
+    joint = ClassifierTrainer(make(False), ClassifierConfig(
+        lr=CLASSIFIER_LR, vae_loss_weight=0.1), device)
+    joint.init_state(vae.state_dict())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m, n = _launched(lambda: joint.train_step(cls_batch))
+    main_path.update(n)
+    m = {k: v.item() for k, v in m.items()}
+    log(f"classifier joint step B=32: {m}, {(time.perf_counter() - t) * 1e3!r}"
+        f" ms (the first, with its warm-up), launched {n}")
+    if (n != {"wavefront_fwd_res_f32": 1, "wavefront_bwd_f32": 1}
+            or not np.isfinite(list(m.values())).all()
+            or abs(m["loss"] - m["classification_loss"] - 0.1 * m["vae_loss"])
+            > 1e-5 * abs(m["loss"])):
+        raise AssertionError(f"joint classifier step: {m}, launches {n}")
+    log(f"phase 12 launches: {dict(main_path)}")
+    return main_path
+
+
 def main(argv) -> int:
     kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
     if argv and not (kernels_only or serve_only):
@@ -2010,7 +2351,8 @@ def main(argv) -> int:
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from vae_teb_tpu_torch.kernels import build
-    sources = ("wavefront_fwd.cu", "wavefront_bwd.cu")
+    sources = ("wavefront_fwd.cu", "wavefront_bwd.cu", "wavefront_grid_fwd.cu",
+               "wavefront_grid_bwd.cu")
     t0 = time.perf_counter()
     build.load_all(sources)
     log(f"built {', '.join(sources)} in parallel in "
@@ -2039,6 +2381,8 @@ def main(argv) -> int:
     frontend_etl_phase(device)
     eval_launches = eval_phase(device)
     stream_launches, export_launches = stream_export_phase(device)
+    grid_kernels = check_grid_kernels(device)
+    variant_launches = variants_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -2065,7 +2409,34 @@ def main(argv) -> int:
             "bf16_launches": {phase: counts.get(bf16_entry, 0)
                               for phase, counts in bf16.items()},
             "eval_launches": n_eval, "stream_launches": n_stream,
-            "export_launches": n_export})
+            "export_launches": n_export,
+            "variant_launches": variant_launches.get(
+                bf16_entry.replace("_bf16", "_f32"), 0)})
+    # the grid kernels at the forecast decoder's LSTM(256, 3), B=32, fp32;
+    # their launches are phase 12's model runs'
+    grid_case = ((3,), 32, torch.float32)
+    for name, src, line, key in (
+            ("wavefront_grid_fwd", "wavefront_grid_fwd.cu", 80, "fwd"),
+            ("wavefront_grid_fwd_residuals", "wavefront_grid_fwd.cu", 80,
+             "fwd_res"),
+            ("wavefront_grid_bwd", "wavefront_grid_bwd.cu", 187, "bwd")):
+        err, ms, plain_ms, library_ms, (bound_ms, bound_by) = grid_kernels[
+            ((3,), 256)][(key,) + grid_case]
+        entry = {"fwd": "wavefront_grid_fwd", "fwd_res": "wavefront_grid_fwd_res",
+                 "bwd": "wavefront_grid_bwd"}[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"vae_teb_tpu_torch/kernels/{src}",
+            "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
+            "launches": variant_launches.get(f"{entry}_f32", 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "errors_by_shape": {
+                f"{'x'.join(map(str, d))}xH{h} {str(dt)[6:]}":
+                    res[(key, d, 32, dt)][0]
+                for (d, h), res in grid_kernels.items()
+                for dt in (torch.float32, torch.bfloat16)}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

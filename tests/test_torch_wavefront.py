@@ -30,14 +30,15 @@ B, S, H = 3, 17, 8
 DEPTHS = (4, 2)   # heterogeneous stream depths
 
 
-def _stream_arrays(seed, n_layers, b=B, s=S, h=H):
+def _stream_arrays(seed, n_layers, b=B, s=S, h=H, w_scale=0.3):
     """Numpy weights, projected inputs and non-zero initial states of one
     stream, as tests/test_models.py builds them."""
     r = np.random.default_rng(seed)
     f32 = lambda *shape: r.standard_normal(shape).astype(np.float32)
     return dict(xp=f32(b, s, 4 * h),
-                w_ih=[f32(h if l else 12, 4 * h) * 0.3 for l in range(n_layers)],
-                w_hh=[f32(h, 4 * h) * 0.3 for _ in range(n_layers)],
+                w_ih=[f32(h if l else 12, 4 * h) * w_scale
+                      for l in range(n_layers)],
+                w_hh=[f32(h, 4 * h) * w_scale for _ in range(n_layers)],
                 b=[f32(4 * h) * 0.1 for _ in range(n_layers)],
                 h0=[f32(b, h) * 0.2 for _ in range(n_layers)],
                 c0=[f32(b, h) * 0.2 for _ in range(n_layers)])
@@ -464,21 +465,53 @@ def test_launch_plan(b, rows, clusters):
 
 
 def test_launch_plan_refuses():
-    """What the kernels do not take: more units than a portable cluster
-    (8), a hidden size that is not a multiple of 8, shared memory over 227
-    KB (H=128 fp32: 512 KB of weights), or more than the 256 threads a CTA
-    the kernels are built for (H=72: 288)."""
-    _launch_plan(32, 6, 8, torch.float32)          # the tests' shape
-    with pytest.raises(ValueError, match="units"):
-        _launch_plan(32, 9, 64, torch.float32)
+    """What the cluster kernels do not take goes to the grid kernels: more
+    units than a portable cluster (8), shared memory over 227 KB (H=128
+    fp32: 512 KB of weights), or more than the 256 threads a CTA the
+    cluster kernels are built for (H=72: 288). What no kernel takes
+    raises: a hidden size that is not a multiple of 8, a storage dtype
+    other than float32 or bfloat16, and more grid CTAs than the card
+    holds at once."""
+    assert _launch_plan(32, 6, 8, torch.float32).kind == "cluster"  # tests'
+    for U, H in ((9, 64), (8, 128), (8, 72)):
+        assert _launch_plan(32, U, H, torch.float32).kind == "grid"
     with pytest.raises(ValueError, match="multiple of 8"):
         _launch_plan(32, 8, 12, torch.float32)
-    with pytest.raises(ValueError, match="shared"):
-        _launch_plan(32, 8, 128, torch.float32)
-    with pytest.raises(ValueError, match="threads"):
-        _launch_plan(32, 8, 72, torch.float32)
     with pytest.raises(TypeError):
         _launch_plan(32, 8, 64, torch.float64)
+    with pytest.raises(ValueError, match="no kernel takes"):
+        _launch_plan(32, 40, 256, torch.float32)
+
+
+@pytest.mark.parametrize("U,H,dtype,cols,ctas", [
+    (3, 256, torch.float32, 8, 96), (2, 256, torch.bfloat16, 8, 64),
+    (8, 128, torch.float32, 8, 128), (10, 64, torch.bfloat16, 8, 80),
+    (9, 64, torch.float32, 8, 72)])
+def test_grid_launch_plan(U, H, dtype, cols, ctas):
+    """The grid plan: the fewest columns N (of 8, 16, 32) with which all
+    U * H / N CTAs are resident at once, by default one CTA per SM of
+    132; the shared memory mirrors the grid kernels' layout (the weight
+    slice and 16 rows of h or 8 of dgates in the storage type, each row
+    padded by 16 bytes, and 8 slices' partial sums in fp32); any batch. A card that
+    holds fewer CTAs takes wider ones; one that holds none of them raises
+    (a cooperative launch cannot run in waves)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for b in (1, 32, 4096):
+        plan = _launch_plan(b, U, H, dtype)
+        assert (plan.kind, plan.cols, plan.ctas) == ("grid", cols, ctas)
+        pad = 16 // item
+        assert plan.fwd_smem == (2 * H * 4 * cols * item
+                                 + 16 * (2 * H + pad) * item
+                                 + 8 * 16 * 4 * cols * 4)
+        assert plan.bwd_smem == (8 * H * cols * item
+                                 + 8 * (8 * H + pad) * item
+                                 + 8 * 8 * cols * 4)
+        assert max(plan.fwd_smem, plan.bwd_smem) <= 232448
+    held = lambda N, fwd, bwd: U * H // 16
+    wide = _launch_plan(32, U, H, dtype, grid_resident=held)
+    assert (wide.cols, wide.ctas) == (16, U * H // 16)
+    with pytest.raises(ValueError, match="the card holds"):
+        _launch_plan(32, U, H, dtype, grid_resident=lambda N, f, b: 1)
 
 
 @pytest.fixture
@@ -578,6 +611,89 @@ def test_gradients_flow_through_the_kernels(cuda_device):
         torch.cuda.synchronize()
         launched = (wavefront_fwd.residual_launches - before[0],
                     wavefront_bwd.launches - before[1])
+        kernels = recurrence is wavefront_recurrence
+        assert launched == ((1, 1) if kernels else (0, 0))
+        grads.append([t.grad for t in torch.utils._pytree.tree_leaves(leaves)])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# (depths, H, B, S): the shapes the cluster kernels refuse, which the grid
+# kernels take: the forecast decoder's LSTM(256, 3) and the predict-st
+# decoder's LSTM(256, 2) at the smoke's B=32, S=300 and at B = 2 and 64;
+# two 4-layer H=128 encoders; two 5-layer H=64 encoders; and ragged small
+# cases (a batch that is no multiple of the kernels' row chunks, 9 units
+# of H=8)
+GRID_CASES = [((3,), 256, 32, 300), ((2,), 256, 32, 300),
+              ((4, 4), 128, 32, 300), ((5, 5), 64, 32, 300),
+              ((3,), 256, 2, 40), ((2,), 256, 64, 40),
+              ((3,), 256, 5, 17), ((5, 4), 64, 19, 40), ((9,), 8, 3, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "fwd_res", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depths,h,b,s", GRID_CASES)
+def test_grid_kernels_match_plain(cuda_device, kind, dtype, depths, h, b, s):
+    """The grid kernels against their plain versions at the bars of the
+    cluster kernels' tests above (serving and residual forward: max-abs
+    1e-5 fp32, 1.6e-2 bf16, the stored gates per element to that times
+    max(1, |g|); reverse: 1e-5 / 3e-2 of max|plain|), each call one launch
+    of its grid entry point."""
+    from vae_teb_tpu_torch.kernels.wavefront import _check
+    fp32 = dtype == torch.float32
+    args = _recurrence_inputs(21, b, s, h, depths, dtype, cuda_device)
+    assert _check("grid", args[:5], args[5], args[2]).kind == "grid"
+    counts = wavefront_bwd.entry_launches if kind == "bwd" else \
+        wavefront_fwd.entry_launches
+    entry = f"wavefront_grid_{kind}_{'f32' if fp32 else 'bf16'}"
+    before = counts[entry]
+    if kind == "bwd":
+        bargs = _bwd_inputs(22, args, s)
+        got, want = wavefront_bwd(*bargs, s), wavefront_bwd_plain(*bargs, s)
+    else:
+        res = kind == "fwd_res"
+        got = wavefront_fwd(*args, s, with_residuals=res)
+        want = wavefront_fwd_plain(*args, s, with_residuals=res)
+    torch.cuda.synchronize()
+    assert counts[entry] == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs()
+        if kind == "bwd":
+            tol = 1e-5 if fp32 else 3e-2
+            assert err.max().item() <= tol * w.float().abs().max().item()
+        else:
+            scale = w.float().abs().clamp_min(1.0) if i == 3 else 1.0
+            assert (err / scale).max().item() <= (1e-5 if fp32 else 1.6e-2)
+
+
+@pytest.mark.cuda
+def test_grid_gradients_flow_through_the_kernels(cuda_device):
+    """A 3-layer and a 2-layer H=256 stream (the two decoders' LSTMs) on the
+    card: gradients through the grid kernels (one residual forward, one
+    backward launch) against autograd of the plain loop, every leaf within
+    1e-4 of its max (fp32). The weights are scaled as the H=8 streams'
+    are at their width (0.3 * sqrt(8 / H)), so that the recurrence is no
+    more sensitive to rounding than theirs."""
+    w_scale = 0.3 * np.sqrt(8 / 256)
+    arrays = [_stream_arrays(3, 3, b=4, s=40, h=256, w_scale=w_scale),
+              _stream_arrays(4, 2, b=4, s=40, h=256, w_scale=w_scale)]
+    grads = []
+    for recurrence in (wavefront_recurrence, wavefront_fwd_plain):
+        leaves = _stream_leaves(arrays, lambda a: torch.tensor(
+            a, device=cuda_device, requires_grad=True))
+        before = (wavefront_fwd.entry_launches["wavefront_grid_fwd_res_f32"],
+                  wavefront_bwd.entry_launches["wavefront_grid_bwd_f32"])
+        _stream_loss(run_lstm_streams(
+            _streams_from_leaves(LSTMStream, leaves, arrays,
+                                 lambda a: torch.as_tensor(a, device=cuda_device)),
+            recurrence=recurrence), torch).backward()
+        torch.cuda.synchronize()
+        launched = (
+            wavefront_fwd.entry_launches["wavefront_grid_fwd_res_f32"]
+            - before[0],
+            wavefront_bwd.entry_launches["wavefront_grid_bwd_f32"] - before[1])
         kernels = recurrence is wavefront_recurrence
         assert launched == ((1, 1) if kernels else (0, 0))
         grads.append([t.grad for t in torch.utils._pytree.tree_leaves(leaves)])

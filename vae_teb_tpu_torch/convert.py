@@ -13,6 +13,14 @@ maps by rule:
           mean -> running_mean, var -> running_var        BatchNorm stats
           w_ih_l, w_hh_l, bias_l unchanged                LSTM: (in, 4H)
                                                           layout, [i,f,g,o]
+          attention/{query,key,value,out}/kernel          flax DenseGeneral:
+                                                          unchanged
+                                                          (C, heads, head_dim)
+                                                          and (heads,
+                                                          head_dim, C)
+
+The attention kernels are 3-D like a conv kernel: `to_torch_layout`
+tells them apart by their path.
 
 Every shape comes from the model, so a tree of any configuration converts
 into a port model built with the same fields (latent widths, decimation
@@ -59,8 +67,18 @@ def torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
-def to_torch_layout(leaf_name: str, array: np.ndarray) -> np.ndarray:
-    """A flax kernel in PyTorch's layout; any other leaf unchanged."""
+_DENSE_GENERAL = ("query", "key", "value", "out")
+
+
+def to_torch_layout(leaf_name: str, array: np.ndarray,
+                    path: Tuple[str, ...] = ()) -> np.ndarray:
+    """A flax kernel in PyTorch's layout; any other leaf unchanged. `path`
+    (the leaf's, collection excluded) marks the self-attention's
+    DenseGeneral kernels (.../attention/{query,key,value,out}/kernel),
+    which the port keeps in flax's layout."""
+    if (len(path) >= 3 and path[-3] == "attention"
+            and path[-2] in _DENSE_GENERAL):
+        return array
     if leaf_name == "kernel" and array.ndim == 2:
         return array.T
     if leaf_name == "kernel" and array.ndim == 3:
@@ -81,7 +99,8 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module
                 unmatched.append("/".join((collection,) + path))
                 continue
             value = torch.tensor(np.ascontiguousarray(
-                to_torch_layout(path[-1], np.asarray(leaf, np.float32))))
+                to_torch_layout(path[-1], np.asarray(leaf, np.float32),
+                                path)))
             if value.shape != expected[key].shape:
                 raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)}"
                                  f" does not fit {key} "

@@ -4,9 +4,10 @@ Port of `vae_teb_tpu.eval.predict_st`: `coefficient_error_stats` (per
 (sample, channel) MSE, energy-normalized MSE and SNR, per-channel VAF,
 per-sample Gaussian log-likelihood over coefficient tracks) and
 `seqvae_mse_test`, the decoder's linear_output against the true
-[y_st | y_ph] coefficients. Each batch's battery runs on the model's
-device and only the (B, C) summaries come back. `prediction_accuracy_test`
-needs the predict-st model, which is not ported yet.
+[y_st | y_ph] coefficients, and `prediction_accuracy_test`, the chained
+future-coefficient windows of `SeqVaeTebPredictSt` against the true
+coefficients. Each batch's battery runs on the model's device and only
+the (B, C) summaries come back.
 """
 
 from __future__ import annotations
@@ -111,5 +112,58 @@ def seqvae_mse_test(model, batches: Iterable, trim: int = 20,
         mu = out["linear_output"].transpose(1, 2)[:, :, lo:hi]
         _accumulate(acc, coefficient_error_stats(sx, mu))
     results = _finalize(acc)
+    _save_artifacts(results, out_dir, tag)
+    return results
+
+
+@torch.inference_mode()
+def prediction_accuracy_test(model, batches: Iterable,
+                             prediction_idx: int = 30,
+                             out_dir: Optional[str] = None,
+                             tag: str = "prediction_error_stats") -> Dict:
+    """Chained future-coefficient prediction accuracy of a
+    `SeqVaeTebPredictSt`, on the model's device in eval mode
+    (deterministic forward): from prediction_idx on, the H-step window
+    predicted at step prediction_idx - 1 + j H covers steps
+    prediction_idx + j H .. + H - 1; the num = (S - prediction_idx) // H
+    chunks, concatenated, are held against the true coefficients of each
+    modality. Returns the battery per modality, keys prefixed scattering_
+    / phase_ (vaf per channel, the mean over batches); with out_dir also
+    the .npy files and histograms.
+    """
+    device = next(model.parameters()).device
+    model.eval()
+    acc: Dict[str, list] = {}
+    for batch in batches:
+        y_st, y_ph, x_ph = (torch.as_tensor(batch[k], dtype=torch.float32,
+                                            device=device)
+                            for k in ("fhr_st", "fhr_ph", "fhr_up_ph"))
+        out = model(y_st, y_ph, x_ph, deterministic=True)
+        h = out["scattering_mu"].shape[2]
+        s = y_st.shape[1]
+        num = (s - prediction_idx) // h
+        if num < 1:
+            raise ValueError(
+                f"sequence length {s} too short for prediction_idx "
+                f"{prediction_idx} with horizon {h}")
+        t_idx = torch.as_tensor(prediction_idx - 1 + h * np.arange(num),
+                                device=device)
+        b = y_st.shape[0]
+        for mod, key, target in (("scattering", "scattering", y_st),
+                                 ("phase", "phase_harmonic", y_ph)):
+            # (B, num, H, C) -> (B, num * H, C) -> (B, C, L)
+            mu = out[f"{key}_mu"][:, t_idx].reshape(b, num * h, -1)
+            var = torch.exp(out[f"{key}_logvar"][:, t_idx]).reshape(
+                b, num * h, -1)
+            sx = target[:, prediction_idx:prediction_idx + num * h]
+            stats = coefficient_error_stats(sx.transpose(1, 2),
+                                            mu.transpose(1, 2),
+                                            var.transpose(1, 2))
+            _accumulate(acc, {f"{mod}_{k}": v for k, v in stats.items()})
+    results = _finalize(acc, vaf_key="__none__")
+    # the vaf entries are per channel: the mean over batches
+    for k in list(results):
+        if k.endswith("_vaf"):
+            results[k] = results[k].reshape(len(acc[k]), -1).mean(axis=0)
     _save_artifacts(results, out_dir, tag)
     return results

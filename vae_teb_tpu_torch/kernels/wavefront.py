@@ -18,7 +18,13 @@ wrapper does.
 
 The kernels run one thread-block cluster of U CTAs (one per unit) per
 group of M batch rows, each CTA holding its unit's weight blocks in shared
-memory for all K steps (`unit_blocks`, `_launch_plan`).
+memory for all K steps (`unit_blocks`, `_launch_plan`). Shapes no cluster
+takes (more than 8 units, 4H over 256 threads, a unit's weights over the
+shared memory of a CTA) run on the grid kernels (`wavefront_grid_fwd.cu`,
+`wavefront_grid_bwd.cu`): one cooperative launch of U * H / N CTAs, each
+owning N state columns of one unit, one grid-wide barrier per step. Their
+entry points are `wavefront_grid_{fwd,fwd_res,bwd}_{f32,bf16}`, counted in
+the same `entry_launches` and in the same totals.
 
 `wavefront_recurrence` is the differentiable recurrence the model calls:
 the serving forward alone (the operator) when no gradient is wanted,
@@ -46,11 +52,20 @@ _SMS = 132               # H100 SXM
 _MAX_ROWS = 10           # batch rows per cluster the kernels are built for
 
 
+_GRID_COLS = (8, 16, 32)  # state columns a grid CTA may own
+_GRID_FWD_ROWS = 16      # batch rows a chunk of the grid kernels' products
+_GRID_BWD_ROWS = 8       # (16 would leave fp32 H=256 no 16-column plan)
+_WARPS = 8               # depth slices of a grid CTA's product
+
+
 class LaunchPlan(NamedTuple):
-    rows: int        # M, batch rows per cluster
-    clusters: int    # ceil(B / M), each of U CTAs
+    rows: int        # cluster: M, batch rows per cluster; grid: 0
+    clusters: int    # cluster: ceil(B / M), each of U CTAs; grid: 0
     fwd_smem: int    # dynamic shared memory of a forward CTA, bytes
     bwd_smem: int    # ... of a reverse-wavefront CTA
+    kind: str = "cluster"   # "cluster" or "grid"
+    cols: int = 0    # grid: N, state columns of one unit a CTA owns
+    ctas: int = 0    # grid: U * H / N CTAs in the cooperative launch
 
 
 def _smem(M: int, H: int, item: int) -> Tuple[int, int]:
@@ -66,38 +81,83 @@ def _smem(M: int, H: int, item: int) -> Tuple[int, int]:
     return fwd, bwd
 
 
+def _grid_smem(N: int, H: int, item: int) -> Tuple[int, int]:
+    """Shared memory of a forward and a reverse grid CTA owning N columns,
+    as the grid kernels lay it out: the weight slice (2H x 4N forward, 8H
+    x N reverse) and one chunk of h rows (16 of 2H) or dgates rows (8 of
+    8H), both in the storage type, each row padded by 16 bytes, and the
+    8 depth slices' partial sums (fp32)."""
+    pad = 16 // item
+    fwd = (2 * H * 4 * N * item + _GRID_FWD_ROWS * (2 * H + pad) * item
+           + _WARPS * _GRID_FWD_ROWS * 4 * N * 4)
+    bwd = (8 * H * N * item + _GRID_BWD_ROWS * (8 * H + pad) * item
+           + _WARPS * _GRID_BWD_ROWS * N * 4)
+    return fwd, bwd
+
+
+def _grid_plan(U: int, H: int, item: int,
+               resident: Optional[Callable[[int, int, int], int]]
+               ) -> LaunchPlan:
+    """The grid kernels' plan: the fewest columns N (8, 16, 32, dividing
+    H) with which all U * H / N CTAs are resident at once;
+    `resident(N, fwd_smem, bwd_smem)` says how many CTAs the card holds
+    (the CUDA wrappers ask the card), by default one per SM of 132. Raises
+    when no N fits: a cooperative launch cannot run in waves."""
+    tried = []
+    for N in _GRID_COLS:
+        if H % N:
+            continue
+        fwd, bwd = _grid_smem(N, H, item)
+        if max(fwd, bwd) > _SMEM_LIMIT:
+            tried.append(f"N={N}: {max(fwd, bwd)} bytes of shared memory")
+            break
+        ctas = U * H // N
+        held = resident(N, fwd, bwd) if resident else _SMS
+        if ctas <= held:
+            return LaunchPlan(0, 0, fwd, bwd, "grid", N, ctas)
+        tried.append(f"N={N}: {ctas} CTAs, the card holds {held}")
+    raise ValueError(f"{U} units of H={H}: no kernel takes this shape (the "
+                     f"cluster kernels: more than {_MAX_UNITS} units, 4H "
+                     f"over {_MAX_THREADS} threads or over {_SMEM_LIMIT} "
+                     f"bytes of shared memory; the grid kernels: "
+                     f"{'; '.join(tried)})")
+
+
 def _launch_plan(B: int, U: int, H: int, dtype: torch.dtype,
-                 resident: Optional[Callable[[int, int, int], int]] = None
-                 ) -> LaunchPlan:
+                 resident: Optional[Callable[[int, int, int], int]] = None,
+                 grid_resident: Optional[Callable[[int, int, int], int]]
+                 = None) -> LaunchPlan:
     """How the kernels split a batch of B rows over U units of width H.
 
-    M is the fewest rows per cluster with which all ceil(B/M) clusters are
-    resident at once; `resident(M, fwd_smem, bwd_smem)` says how many
-    clusters of U CTAs the card holds (the CUDA wrappers ask the card,
+    The cluster kernels take up to 8 units with 4H <= 256 threads a CTA
+    (so that a thread may hold up to 255 registers) and a unit's 8H^2
+    weights in one CTA's 227 KB of shared memory. M is the fewest rows per
+    cluster with which all ceil(B/M) clusters are resident at once;
+    `resident(M, fwd_smem, bwd_smem)` says how many clusters of U CTAs the
+    card holds (the CUDA wrappers ask the card,
     cudaOccupancyMaxActiveClusters); by default one CTA per SM of 132. When
     no M up to 10 fits, the largest that the shared memory takes runs the
-    clusters in waves. Raises on what the kernels do not take: more than 8
-    units, H not a multiple of 8 (16-byte copies of a unit's row segment),
-    shared memory over 227 KB, or 4H over the 256 threads a CTA the
-    kernels are built for (so that a thread may hold up to 255 registers).
+    clusters in waves.
+
+    Any other shape takes the grid kernels (`_grid_plan`, with
+    `grid_resident`), which raise when their CTAs cannot all be resident.
+    Both refuse H not a multiple of 8 (16-byte copies of a unit's row
+    segment; the grid CTAs' 8 columns) and a storage dtype other than
+    float32 or bfloat16.
     """
     if dtype not in _DTYPES:
         raise TypeError(f"the wavefront kernels take float32 or bfloat16, "
                         f"got {dtype}")
-    if not 1 <= U <= _MAX_UNITS:
-        raise ValueError(f"{U} units: a cluster holds one CTA per unit, at "
-                         f"most {_MAX_UNITS}")
+    if U < 1:
+        raise ValueError(f"bad unit count {U}")
     if H < 8 or H % 8:
         raise ValueError(f"hidden size {H}: the kernels need a multiple of 8")
     if B < 1:
         raise ValueError(f"bad batch {B}")
     item = torch.empty((), dtype=dtype).element_size()
-    if max(_smem(1, H, item)) > _SMEM_LIMIT:
-        raise ValueError(f"H={H} {dtype} needs {max(_smem(1, H, item))} bytes "
-                         f"of shared memory per CTA, over {_SMEM_LIMIT}")
-    if 4 * H > _MAX_THREADS:
-        raise ValueError(f"hidden size {H}: 4H = {4 * H} threads a CTA, over "
-                         f"the {_MAX_THREADS} the kernels are built for")
+    if (U > _MAX_UNITS or 4 * H > _MAX_THREADS
+            or max(_smem(1, H, item)) > _SMEM_LIMIT):
+        return _grid_plan(U, H, item, grid_resident)
     plan = None
     for M in range(1, _MAX_ROWS + 1):
         fwd, bwd = _smem(M, H, item)
@@ -132,6 +192,31 @@ def _card_resident(device: torch.device, dtype: torch.dtype, U: int, H: int
                                    f"shared memory (CUDA error {-n})")
             _held[key] = n
         return _held[key]
+    return held
+
+
+_grid_held: Dict[tuple, int] = {}
+
+
+def _card_grid_resident(device: torch.device, dtype: torch.dtype
+                        ) -> Callable[[int, int, int], int]:
+    """`grid_resident` for `_launch_plan` on a card: the CTAs of N columns
+    that both grid kernels can hold at once (blocks per SM by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, times the SMs), asked
+    once per shape."""
+    def held(N: int, fwd_smem: int, bwd_smem: int) -> int:
+        key = (device, dtype, N, fwd_smem, bwd_smem)
+        if key not in _grid_held:
+            with torch.cuda.device(device):
+                n = min(_max_ctas(kind)(int(dtype == torch.bfloat16), N, smem)
+                        for kind, smem in (("fwd", fwd_smem),
+                                           ("bwd", bwd_smem)))
+            if n < 1:
+                raise RuntimeError(f"the card holds no grid CTA with "
+                                   f"{max(fwd_smem, bwd_smem)} bytes of "
+                                   f"shared memory (CUDA error {-n})")
+            _grid_held[key] = n
+        return _grid_held[key]
     return held
 
 
@@ -211,6 +296,15 @@ def _max_clusters(kind: str):
     return fn
 
 
+def _max_ctas(kind: str):
+    """wavefront_grid_{kind}_max_ctas(bf16, N, smem) -> int."""
+    fn = build.load(f"wavefront_grid_{kind}.cu")[
+        f"wavefront_grid_{kind}_max_ctas"]
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel(source: str, entry: str, n_ptr: int):
     fn = getattr(build.load(source), entry)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -233,6 +327,8 @@ def _check(name: str, tensors, lvec: torch.Tensor, seq: torch.Tensor
         raise ValueError(f"{name} inputs lie on different devices")
     if not all(x.is_contiguous() for x in tensors + (lvec,)):
         raise ValueError(f"{name} needs contiguous inputs")
+    if any(x.data_ptr() % 16 for x in tensors):   # 16-byte cp.async copies
+        raise ValueError(f"{name} needs 16-byte aligned inputs")
     K, B, G = seq.shape
     UH, U = G // 4, lvec.numel()
     if G != 4 * UH or U < 1 or UH % U:
@@ -241,7 +337,31 @@ def _check(name: str, tensors, lvec: torch.Tensor, seq: torch.Tensor
         raise ValueError(f"{name}: bad batch {B} or step count {K}")
     H = UH // U
     return _launch_plan(B, U, H, dtype,
-                        _card_resident(seq.device, dtype, U, H))
+                        _card_resident(seq.device, dtype, U, H),
+                        _card_grid_resident(seq.device, dtype))
+
+
+def _launch(kind: str, entry: str, plan: LaunchPlan, ptrs, K: int, B: int,
+            U: int, H: int, S: int, device: torch.device) -> str:
+    """Launch `entry` of the cluster or the grid kernel of `kind` ("fwd" or
+    "bwd") as `plan` says; raises on a CUDA error. Returns the entry point's
+    name as counted: the grid kernels' carry `grid_` after `wavefront_`."""
+    smem = plan.fwd_smem if kind == "fwd" else plan.bwd_smem
+    if plan.kind == "grid":
+        entry = entry.replace("wavefront_", "wavefront_grid_", 1)
+        source, split = f"wavefront_grid_{kind}.cu", plan.cols
+        # the grid barrier's arrival counter, zero at the start
+        bar = torch.zeros(1, dtype=torch.int32, device=device)
+        ptrs = list(ptrs) + [bar.data_ptr()]
+    else:
+        source, split = f"wavefront_{kind}.cu", plan.rows
+    with torch.cuda.device(device):
+        err = _kernel(source, entry, len(ptrs))(
+            *ptrs, K, B, U, H, S, split, smem,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    return entry
 
 
 def _device_type(name: str, x: torch.Tensor) -> str:
@@ -277,12 +397,7 @@ def _fwd_cuda(W_eff: torch.Tensor, b_packed: torch.Tensor,
     else:
         entry = f"wavefront_fwd_{_DTYPES[dtype]}"
     ptrs += [h_fin.data_ptr(), c_fin.data_ptr()]
-    with torch.cuda.device(device):
-        err = _kernel("wavefront_fwd.cu", entry, len(ptrs))(
-            *ptrs, K, B, U, H, S, plan.rows, plan.fwd_smem,
-            torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    entry = _launch("fwd", entry, plan, ptrs, K, B, U, H, S, device)
     wavefront_fwd.entry_launches[entry] += 1
     if with_residuals:
         wavefront_fwd.residual_launches += 1
@@ -380,12 +495,7 @@ def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
     entry = f"wavefront_bwd_{_DTYPES[dtype]}"
     ptrs = [x.data_ptr() for x in (wb,) + tensors[1:] + (lvec, dgates_seq,
                                                         dh_fin, dc_fin)]
-    with torch.cuda.device(device):
-        err = _kernel("wavefront_bwd.cu", entry, len(ptrs))(
-            *ptrs, K, B, U, H, S, plan.rows, plan.bwd_smem,
-            torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    entry = _launch("bwd", entry, plan, ptrs, K, B, U, H, S, device)
     wavefront_bwd.launches += 1
     wavefront_bwd.entry_launches[entry] += 1
     return dgates_seq, dh_fin, dc_fin

@@ -126,8 +126,9 @@ class Conv1d(nn.Conv1d):
     weight cast to the compute dtype; None is `nn.Conv1d`."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 dtype: Dtype = None):
-        super().__init__(in_features, features, kernel_size, bias=False)
+                 dtype: Dtype = None, dilation: int = 1):
+        super().__init__(in_features, features, kernel_size, bias=False,
+                         dilation=dilation)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -242,17 +243,19 @@ class ResidualMLP(nn.Module):
 
 class CausalConv1d(nn.Module):
     """Left-padded 1-D convolution over (B, S, C), no bias: no future
-    leakage."""
+    leakage. With dilation d the taps are d apart and the left pad is
+    (k-1) * d."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 dtype: Dtype = None):
+                 dtype: Dtype = None, dilation: int = 1):
         super().__init__()
-        self.pad = kernel_size - 1
-        self.conv = Conv1d(in_features, features, kernel_size, dtype)
+        self.pad = (kernel_size - 1) * dilation
+        self.conv = Conv1d(in_features, features, kernel_size, dtype,
+                           dilation)
 
     def forward(self, x: torch.Tensor,
                 carry: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """carry: the (B, k-1, C) tail of the preceding chunk's input, which
+        """carry: the (B, (k-1) d, C) tail of the preceding chunk's input, which
         streaming puts in place of the zero left pad (cast to x's dtype), so
         that chunks in turn give what one full-sequence call gives."""
         if carry is None:
@@ -263,12 +266,13 @@ class CausalConv1d(nn.Module):
 
 
 class CausalConvBlock(nn.Module):
-    """Causal conv -> BatchNorm -> relu."""
+    """Causal conv (dilation d) -> BatchNorm -> relu."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int,
-                 dtype: Dtype = None):
+                 dtype: Dtype = None, dilation: int = 1):
         super().__init__()
-        self.conv = CausalConv1d(in_features, features, kernel_size, dtype)
+        self.conv = CausalConv1d(in_features, features, kernel_size, dtype,
+                                 dilation)
         self.bn = BatchNorm(features, dtype)
 
     def forward(self, x: torch.Tensor,

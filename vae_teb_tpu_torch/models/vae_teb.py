@@ -384,6 +384,27 @@ class Decoder(nn.Module):
         return linear_output, self.output_mu(x), self.output_logvar(x)
 
 
+def sample_z(enc: Dict[str, torch.Tensor], deterministic: bool,
+             generator: Optional[torch.Generator] = None,
+             eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """z from the encodings: the posterior mean when deterministic, else
+    mu_post + eps * exp(logvar_post / 2) with standard-normal eps drawn
+    from `generator` or the caller's `eps` (see `SeqVaeTeb.forward`)."""
+    mu, logvar = enc["mu_post"], enc["logvar_post"]
+    if deterministic:
+        return mu
+    if eps is None:
+        if generator is None:
+            raise ValueError("sampling needs an explicit torch.Generator or "
+                             "eps")
+        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                          device=mu.device)
+    elif eps.shape != mu.shape:
+        raise ValueError(f"eps has shape {tuple(eps.shape)}, expected "
+                         f"{tuple(mu.shape)}")
+    return mu + eps.to(mu) * torch.exp(0.5 * logvar)
+
+
 class SeqVaeTeb(nn.Module):
     """Full TEB sequence VAE.
 
@@ -393,7 +414,14 @@ class SeqVaeTeb(nn.Module):
     is recorded, runs the reverse-wavefront backward. A caller may swap in
     `kernels.wavefront_fwd_plain` (autograd then differentiates the plain
     loop) to compare the two on the card.
+
+    Subclasses that decode z otherwise (the forecast and predict-st
+    families, `models.variants`) set `raw_decoder = False`: they carry no
+    `Decoder`, as flax never creates the parameters of a submodule it
+    does not call.
     """
+
+    raw_decoder = True
 
     def __init__(self, input_channels: int = 130, n_scattering: int = 43,
                  n_phase: int = 44, lstm_hidden_dim: int = 64,
@@ -404,6 +432,8 @@ class SeqVaeTeb(nn.Module):
                  decimation_factor: int = UPSAMPLE):
         super().__init__()
         self.dtype = dtype
+        self.latent_dim_z = latent_dim_z
+        self.n_scattering, self.n_phase = n_scattering, n_phase
         self.recurrence: Callable = wavefront_recurrence
         self.source_encoder = SourceEncoder(input_channels, lstm_hidden_dim,
                                             lstm_num_layers, dtype,
@@ -413,8 +443,9 @@ class SeqVaeTeb(nn.Module):
                                             latent_dim_target)
         self.conditional_encoder = ConditionalEncoder(
             dtype, latent_dim_source, latent_dim_target, latent_dim_z)
-        self.decoder = Decoder(n_scattering + n_phase, seq_len, dtype,
-                               latent_dim_z, decimation_factor)
+        if self.raw_decoder:
+            self.decoder = Decoder(n_scattering + n_phase, seq_len, dtype,
+                                   latent_dim_z, decimation_factor)
 
     def encode(self, y_st, y_ph, x_ph) -> Dict[str, torch.Tensor]:
         """All three encoders; the two LSTMs run as one wavefront."""
@@ -442,20 +473,7 @@ class SeqVaeTeb(nn.Module):
         cast to, mu_post's dtype (the compute dtype) and z is formed in it,
         as the JAX package draws its noise in the compute dtype."""
         enc = self.encode(y_st, y_ph, x_ph)
-        mu, logvar = enc["mu_post"], enc["logvar_post"]
-        if deterministic:
-            z = mu
-        else:
-            if eps is None:
-                if generator is None:
-                    raise ValueError("sampling needs an explicit "
-                                     "torch.Generator or eps")
-                eps = torch.randn(mu.shape, generator=generator,
-                                  dtype=mu.dtype, device=mu.device)
-            elif eps.shape != mu.shape:
-                raise ValueError(f"eps has shape {tuple(eps.shape)}, "
-                                 f"expected {tuple(mu.shape)}")
-            z = mu + eps.to(mu) * torch.exp(0.5 * logvar)
+        z = sample_z(enc, deterministic, generator, eps)
         linear_output, mu_pr, logvar_pr = self.decoder(z)
         return {"z": z, "linear_output": linear_output,
                 "mu_pr": mu_pr, "logvar_pr": logvar_pr, **enc}

@@ -7,7 +7,8 @@ same `best()`, `latest()` and `restore(step=, best=)`. A checkpoint is a
 directory `step_<step:08d>/` holding `state.pt`, the trainer's
 `state_dict()` (model parameters and BatchNorm statistics, optimizer
 moments in their storage dtype with the update count, generator state,
-step count). `transfer_params` waits for the classifier slice.
+step count). `transfer_params` copies matching entries between models'
+state_dicts (loading a pretrained VAE into the classifier wrapper).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -89,3 +90,42 @@ class Checkpointer:
             raise FileNotFoundError("no checkpoint matches the request")
         return torch.load(os.path.join(entry["path"], _STATE),
                           map_location=map_location, weights_only=True)
+
+
+def transfer_params(src: Mapping[str, torch.Tensor],
+                    dst: Mapping[str, torch.Tensor],
+                    src_prefix: Tuple[str, ...] = (),
+                    dst_prefix: Tuple[str, ...] = (),
+                    strict: bool = False
+                    ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Copy matching entries between state_dicts (checkpoint surgery), as
+    the JAX package's `transfer_params` does between flax trees.
+
+    A key of `dst` under `dst_prefix` (key segments split at ".") takes the
+    entry of `src` at `src_prefix` + the rest of the key, when `src` has
+    one of the same shape; e.g. a pretrained VAE into the classifier:
+        transfer_params(vae.state_dict(), cls.state_dict(),
+                        dst_prefix=("vae_model",))
+    A missing source entry or a shape mismatch leaves the entry as it was,
+    or raises with strict (KeyError, ValueError). Returns (the new
+    state_dict, the copied keys of dst); `dst` itself is not changed.
+    """
+    out: Dict[str, torch.Tensor] = dict(dst)
+    copied: List[str] = []
+    n = len(dst_prefix)
+    for key, leaf in dst.items():
+        parts = tuple(key.split("."))
+        if parts[:n] != tuple(dst_prefix):
+            continue
+        lookup = ".".join(tuple(src_prefix) + parts[n:])
+        if lookup not in src:
+            if strict:
+                raise KeyError(f"missing source entry for {key}")
+            continue
+        if tuple(src[lookup].shape) != tuple(leaf.shape):
+            if strict:
+                raise ValueError(f"shape mismatch at {key}")
+            continue
+        out[key] = src[lookup]
+        copied.append(key)
+    return out, copied
