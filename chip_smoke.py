@@ -6,11 +6,13 @@ forecast, predict-st and classifier families on an NVIDIA GPU.
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
     python3 chip_smoke.py --serve     # phases 1, 2 and 4, printing no result
+    python3 chip_smoke.py --grid      # phases 1, 2 and 12 (a), printing no result
 
-Run with --kernels or --serve from a copy placed at the root of another
-checkout, it times that checkout's kernels or serving path (the wrappers'
-and the server's signatures are unchanged since the first kernels), so
-two versions compare on one card.
+Run with --kernels, --serve or --grid from a copy placed at the root of
+another checkout, it times that checkout's kernels or serving path (the
+wrappers' and the server's signatures are unchanged since the first
+kernels, the grid kernels' since they came), so two versions compare on
+one card.
 
 Phases, each of which raises on failure (exit code 1):
   1. device: CUDA must be present (exit 2 otherwise, before any result);
@@ -19,7 +21,9 @@ Phases, each of which raises on failure (exit code 1):
      one nvcc each, in parallel) for sm_90a; print
      each instantiation's ptxas registers and spills, and the launch plan
      of each main-path batch (rows per cluster, clusters of 8 CTAs, shared
-     memory) with the clusters the card holds at once;
+     memory) with the clusters the card holds at once, and the grid plan
+     of each phase-12 shape at B=32 (columns a CTA, CTAs a cluster, ring
+     buffers, shared memory);
   3. kernels against their plain PyTorch versions on the card, at the
      serving/training shape (two 4-layer H=64 streams, S=300, K=303) at
      B = 32 (fp32 and bf16 storage), 128 and 1, and a 4+2-layer shape:
@@ -29,8 +33,11 @@ Phases, each of which raises on failure (exit code 1):
      max|plain| on each output). At 2x4 layers, B = 32 and 128 fp32 and
      B = 32 bf16, also CUDA-event times (median of 15 runs; plain 5), the
      bound (fp32 operations on the non-zero weight blocks, over the S
-     steps each unit runs, over 67 TFLOP/s, or bytes over 3.35 TB/s) and the yardstick: cuDNN's LSTM
-     (`torch.nn.LSTM`, one per stream) computing the same function, held
+     steps each unit runs, over 67 TFLOP/s fp32 (the cluster kernels'
+     CUDA cores; the grid kernels' 3xTF32: three products at 495 TFLOP/s)
+     or 989 TFLOP/s for bf16 storage, or bytes over 3.35 TB/s) and the
+     yardstick: cuDNN's LSTM (`torch.nn.LSTM`, one per stream) computing
+     the same function, held
      to the kernel's outputs at 1e-4 of max (bf16 storage: 1.6e-2) and
      timed forward and backward-data; then the serving forward at B=244
      (one shift program of phase 10: 25 clusters, more than the card
@@ -121,8 +128,9 @@ Phases, each of which raises on failure (exit code 1):
      residual, reverse) against their plain versions at (U, H) = (3, 256)
      and (2, 256) (the decoders' LSTMs), (8, 128) and (10, 64), B=32,
      S=300, fp32 and bf16, at phase 3's bars, with their launch plans
-     (columns a CTA, CTAs), CUDA-event times, bounds and the cuDNN
-     yardstick (held at 1e-4 of max in fp32); (b) full-width
+     (columns a CTA, CTAs, CTAs a cluster, ring buffers), CUDA-event
+     times, bounds and the cuDNN yardstick (held at 1e-4 of max in fp32);
+     `--grid` runs this part alone; (b) full-width
      SeqVaeTebForecast(decoder_type="direct") on seeded raw windows
      through the production frontend: 4 train steps at B=32 (forward,
      compute_loss(beta=1e-5), backward, ClippedAdamW), each launching the
@@ -144,8 +152,9 @@ Phases, each of which raises on failure (exit code 1):
      counted from 0 at that phase's start, the serving forward's launches
      in phase 10, in phase 11 the sessions' and the loaded programs', and
      phase 12's model runs'; the grid kernels' rows at (3, 256), B=32,
-     fp32, with their errors at every phase-12 shape), and last {"ok":
-     true, "device": {...}}.
+     fp32, with their errors, times, cuDNN times and bounds at every
+     phase-12 shape and storage type, `by_shape`), and last {"ok": true,
+     "device": {...}}.
 """
 
 import json
@@ -163,8 +172,11 @@ BATCHES = (1, 8, 32)
 REQUESTS = 5          # timed requests per batch size (after one warm-up)
 TIMED_RUNS = 15       # kernel and yardstick timing repeats
 PLAIN_RUNS = 5        # plain-version timing repeats (host-bound loops)
-# published peaks of one H100 SXM: fp32 outside the tensor cores, HBM3
+# published peaks of one H100 SXM: fp32 outside the tensor cores, TF32 and
+# bf16 dense on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 FP32_TOL, BF16_TOL = 1e-5, 1.6e-2
 BWD_FP32_TOL, BWD_BF16_TOL = 1e-5, 3e-2   # of max|plain| per output
@@ -303,11 +315,14 @@ def recurrence_inputs(gen, b, s, h, depths, dtype, device):
         lvec.to(device),)
 
 
-def bound(kind, B, K, S, U, H, n_feed, itemsize):
+def bound(kind, B, K, S, U, H, n_feed, itemsize, tensor_fp32=False):
     """(bound_ms, bound_by): the least time the card could take for one
-    call, the larger of the fp32 operations the non-zero weight blocks need
+    call, the larger of the operations the non-zero weight blocks need
     (2 * H * 4H per block, per row, per step that its unit runs: S of the K
-    wavefront steps) over the fp32 peak and the bytes of every input read
+    wavefront steps) at the rate of the route the kernel's products take
+    (fp32 storage: 67 TFLOP/s on the CUDA cores, or with `tensor_fp32`
+    three TF32 products each, 3xTF32, at 495 TFLOP/s on the tensor cores;
+    bf16: 989 TFLOP/s, the tensor cores) and the bytes of every input read
     once and every output written once over the memory rate."""
     UH, G = U * H, 4 * U * H
     blocks = U + n_feed
@@ -322,7 +337,11 @@ def bound(kind, B, K, S, U, H, n_feed, itemsize):
         if kind == "fwd_res":                # gates_seq, c_seq out
             elems += K * B * G + K * B * UH
     nbytes = elems * itemsize + 4 * U        # + lvec
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    if itemsize == 2:
+        rate = PEAK_BF16_FLOPS
+    else:
+        rate = PEAK_TF32_FLOPS / 3 if tensor_fp32 else PEAK_FP32_FLOPS
+    ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -416,9 +435,18 @@ def cudnn_times(streams, gen):
 def check_residency(device):
     """The launch plans of the main path's shapes as the wrappers make
     them: rows per cluster chosen so that every cluster of U=8 CTAs is
-    resident at once, by the card's cudaOccupancyMaxActiveClusters."""
-    from vae_teb_tpu_torch.kernels.wavefront import (_card_resident,
+    resident at once, by the card's cudaOccupancyMaxActiveClusters; and the
+    grid plans of phase 12's shapes at B=32."""
+    from vae_teb_tpu_torch.kernels.wavefront import (_card_grid_resident,
+                                                     _card_resident,
                                                      _launch_plan)
+    for depths, H in GRID_KERNEL_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = _launch_plan(32, sum(depths), H, dtype,
+                                grid_resident=_card_grid_resident(device,
+                                                                  dtype))
+            log(f"grid {'x'.join(map(str, depths))} layers H={H} B=32 "
+                f"{str(dtype)[6:]}: {plan}")
     for b in (1, 8, 32, 128):
         for dtype in (torch.float32, torch.bfloat16):
             held = _card_resident(device, dtype, 8, 64)
@@ -451,7 +479,7 @@ def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
     (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}."""
     from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
                                            wavefront_fwd, wavefront_fwd_plain)
-    from vae_teb_tpu_torch.kernels.wavefront import _check
+    from vae_teb_tpu_torch.kernels.wavefront import _check, _launch_plan
     gen = torch.Generator().manual_seed(4)
     results, failed = {}, []
     for depths, b, dtype, timed in cases:
@@ -542,8 +570,11 @@ def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
             lib = {"fwd": lib_fwd, "fwd_res": lib_fwd, "bwd": lib_bwd}
         except RuntimeError as e:     # a type cuDNN's LSTM does not take
             log(f"cuDNN LSTM yardstick {label}: not available ({e})")
+        # the grid kernels run fp32 products on the tensor cores (3xTF32),
+        # the cluster kernels on the CUDA cores
+        grid = _launch_plan(b, U, H, dtype).kind == "grid"
         for kind in ("fwd", "fwd_res", "bwd"):
-            bnd = bound(kind, b, K, S, U, H, n_feed, xs.element_size())
+            bnd = bound(kind, b, K, S, U, H, n_feed, xs.element_size(), grid)
             results[(kind, depths, b, dtype)] += [lib[kind], bnd]
             _, ms, _ = results[(kind, depths, b, dtype)][:3]
             log(f"{kind} {label}: kernel {ms!r} ms, cuDNN {lib[kind]!r} ms, "
@@ -2337,8 +2368,10 @@ def variants_phase(device):
 
 def main(argv) -> int:
     kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
-    if argv and not (kernels_only or serve_only):
-        print("usage: chip_smoke.py [--kernels | --serve]", file=sys.stderr)
+    grid_only = argv == ["--grid"]
+    if argv and not (kernels_only or serve_only or grid_only):
+        print("usage: chip_smoke.py [--kernels | --serve | --grid]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2367,6 +2400,9 @@ def main(argv) -> int:
         return 0
     if serve_only:            # phase 4 alone, also on an older checkout
         serve(device)
+        return 0
+    if grid_only:             # phase 12 (a) alone, also on an older checkout
+        check_grid_kernels(device)
         return 0
     check_residency(device)
 
@@ -2432,9 +2468,12 @@ def main(argv) -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
-            "errors_by_shape": {
+            # (max_abs_err, ms, library_ms, bound_ms) at every phase-12
+            # shape and storage type, B=32
+            "by_shape": {
                 f"{'x'.join(map(str, d))}xH{h} {str(dt)[6:]}":
-                    res[(key, d, 32, dt)][0]
+                    [res[(key, d, 32, dt)][i] for i in (0, 1, 3)]
+                    + [res[(key, d, 32, dt)][4][0]]
                 for (d, h), res in grid_kernels.items()
                 for dt in (torch.float32, torch.bfloat16)}})
     print(json.dumps({"kernels": rows}))

@@ -483,35 +483,254 @@ def test_launch_plan_refuses():
         _launch_plan(32, 40, 256, torch.float32)
 
 
+def _up128(x):
+    return -(-x // 128) * 128
+
+
 @pytest.mark.parametrize("U,H,dtype,cols,ctas", [
     (3, 256, torch.float32, 8, 96), (2, 256, torch.bfloat16, 8, 64),
     (8, 128, torch.float32, 8, 128), (10, 64, torch.bfloat16, 8, 80),
     (9, 64, torch.float32, 8, 72)])
 def test_grid_launch_plan(U, H, dtype, cols, ctas):
-    """The grid plan: the fewest columns N (of 8, 16, 32) with which all
-    U * H / N CTAs are resident at once, by default one CTA per SM of
-    132; the shared memory mirrors the grid kernels' layout (the weight
-    slice and 16 rows of h or 8 of dgates in the storage type, each row
-    padded by 16 bytes, and 8 slices' partial sums in fp32); any batch. A card that
-    holds fewer CTAs takes wider ones; one that holds none of them raises
-    (a cooperative launch cannot run in waves)."""
+    """The grid plan: the fewest columns N (of 8, 16, 32) whose CTAs fit
+    the shared memory, in the largest clusters (8, 4, 2, 1 CTAs of one
+    unit) with which all U * H / N CTAs are resident at once, by default
+    whole clusters on 132 SMs; min(B, 32) rows a pass, so any batch. The
+    shared memory mirrors the grid kernels' layout, each region 128-byte
+    aligned: 256 bytes of mbarriers, the weight slice as mma fragments
+    (2H x 4N forward, 8H x N reverse, each stage's depth rounded up to
+    the mma's: 8 tf32, 16 bf16), the stage ring (rows rounded up to 8 /
+    16, H values and 16 bytes a row), the depth slices' sums (8 / m-tiles
+    of them, fp32, the rows by 4N + 8 forward, by N reverse), two steps'
+    inputs (4 / 7 segments of N a row), the
+    forward's bias, the carried state (2 / 3 fp32 of rows x N). A card
+    that holds fewer CTAs takes wider ones; one that holds none of them
+    raises (a cooperative launch cannot run in waves)."""
     item = torch.empty((), dtype=dtype).element_size()
+    kw = 8 if item == 4 else 16
+    kts = -(-H // kw)
+    rs = (kts * kw + 16 // item) * item           # bytes of a stage row
     for b in (1, 32, 4096):
         plan = _launch_plan(b, U, H, dtype)
         assert (plan.kind, plan.cols, plan.ctas) == ("grid", cols, ctas)
-        pad = 16 // item
-        assert plan.fwd_smem == (2 * H * 4 * cols * item
-                                 + 16 * (2 * H + pad) * item
-                                 + 8 * 16 * 4 * cols * 4)
-        assert plan.bwd_smem == (8 * H * cols * item
-                                 + 8 * (8 * H + pad) * item
-                                 + 8 * 8 * cols * 4)
+        assert plan.cluster == 8 and plan.clusters == ctas // 8
+        rows = min(b, 32)
+        assert plan.rows == rows and plan.flags == U * 32
+        r8, r16 = -(-rows // 8) * 8, -(-rows // 16) * 16
+        mt_f, mt_b = cols // 4, r16 // 16
+        fwd = bwd = 256
+        fwd = _up128(fwd + mt_f * 2 * kts * 32 * 16)
+        fwd = _up128(fwd + plan.fwd_bufs * r8 * rs)
+        fwd = _up128(fwd + 8 // mt_f * r8 * (4 * cols + 8) * 4)
+        fwd = _up128(fwd + 2 * rows * 4 * cols * item)
+        fwd = _up128(fwd + 16 * cols)
+        fwd = _up128(fwd + 2 * rows * cols * 4)
+        bwd = _up128(bwd + cols // 8 * 8 * kts * 32 * 8)
+        bwd = _up128(bwd + plan.bwd_bufs * r16 * rs)
+        bwd = _up128(bwd + 8 // mt_b * r16 * cols * 4)
+        bwd = _up128(bwd + 2 * rows * 7 * cols * item)
+        bwd = _up128(bwd + 3 * rows * cols * 4)
+        assert (plan.fwd_smem, plan.bwd_smem) == (fwd, bwd)
         assert max(plan.fwd_smem, plan.bwd_smem) <= 232448
-    held = lambda N, fwd, bwd: U * H // 16
+        # the ring: every stage of a step where it fits (2 forward, 8
+        # reverse), else as many buffers as fit
+        assert plan.fwd_bufs == 2 and 1 <= plan.bwd_bufs <= 8
+        assert plan.bwd_bufs == 8 or plan.bwd_smem + r16 * rs > 232448
+    held = lambda N, CS, fwd, bwd: U * H // 16
     wide = _launch_plan(32, U, H, dtype, grid_resident=held)
     assert (wide.cols, wide.ctas) == (16, U * H // 16)
     with pytest.raises(ValueError, match="the card holds"):
-        _launch_plan(32, U, H, dtype, grid_resident=lambda N, f, b: 1)
+        _launch_plan(32, U, H, dtype, grid_resident=lambda N, CS, f, b: 1)
+
+
+@pytest.mark.parametrize("U,H,held,cols,cluster", [
+    # the H100 holds 15 clusters of 8 of these CTAs, 30 of 4, 66 of 2
+    (8, 128, {8: 120, 4: 120, 2: 132, 1: 132}, 8, 2),
+    (3, 256, {8: 120, 4: 120, 2: 132, 1: 132}, 8, 8),
+    # no cluster of the 128 CTAs of N=8 fits: clusters of 8 of N=16
+    (8, 128, {8: 120, 4: 120, 2: 120, 1: 120}, 16, 8),
+    # one CTA a unit (H = N = 8): no cluster to share rows with
+    (9, 8, {8: 0, 4: 0, 2: 0, 1: 132}, 8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_plan_clusters(U, H, held, cols, cluster, dtype):
+    """The plan takes the fewest columns, then the largest cluster of CTAs
+    of one unit (which fetch each step's rows once between them) that the
+    card holds all of at once; `resident(N, CS, ...)` answers in CTAs. In
+    bf16 storage clusters of at least 4 come first: U=8, H=128 on the
+    H100 takes clusters of 8 of N=16 rather than clusters of 2 of N=8."""
+    if dtype == torch.bfloat16 and (U, H, cluster) == (8, 128, 2):
+        cols, cluster = 16, 8
+    plan = _launch_plan(32, U, H, dtype,
+                        grid_resident=lambda N, CS, f, b: held[CS])
+    assert (plan.cols, plan.cluster) == (cols, cluster)
+    assert plan.ctas == U * H // cols and plan.clusters == plan.ctas // cluster
+    assert plan.flags == U * 32
+
+
+def test_grid_plan_refuses_too_few_clusters():
+    """A card that holds fewer clusters than a plan needs, at every N and
+    cluster size, raises before any launch; the message names each
+    (N, cluster size) tried and the N whose CTAs overflow the shared
+    memory (fp32 H=256: N=32)."""
+    with pytest.raises(ValueError, match=r"N=8 in clusters of 8: 96 CTAs, "
+                                         r"the card holds 20") as err:
+        _launch_plan(32, 3, 256, torch.float32,
+                     grid_resident=lambda N, CS, f, b: 20)
+    msg = str(err.value)
+    assert "N=16 in clusters of 1: 48 CTAs" in msg
+    assert "N=32: over 232448 bytes of shared memory" in msg
+
+
+def test_grid_plan_rows_and_rings():
+    """Rows a pass: min(B, 32). The reverse's ring: all 8 stages where the
+    shared memory takes them (bf16 at H=256, every H=64 shape), 4 at fp32
+    H=256 (33 KB a stage). The forward's: both stages but at fp32 H=512
+    with 32 rows a pass, where one buffer takes them in turn (as one does
+    the reverse's eight); 5 rows a pass keep two."""
+    assert _launch_plan(5, 3, 256, torch.float32).rows == 5
+    assert _launch_plan(300, 3, 256, torch.float32).rows == 32
+    assert _launch_plan(32, 3, 256, torch.float32).bwd_bufs == 4
+    assert _launch_plan(32, 3, 256, torch.bfloat16).bwd_bufs == 8
+    assert _launch_plan(32, 10, 64, torch.float32).bwd_bufs == 8
+    for b in (32, 40):
+        plan = _launch_plan(b, 2, 512, torch.float32)
+        assert (plan.fwd_bufs, plan.bwd_bufs) == (1, 1)
+    assert _launch_plan(32, 2, 512, torch.bfloat16).fwd_bufs == 2
+    assert _launch_plan(5, 2, 512, torch.float32).fwd_bufs == 2
+
+
+def _tf32(x):
+    """x (float32) rounded to tf32, to nearest with ties away from zero, as
+    cvt.rna.tf32.f32 and the kernels' integer version round."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x (float32) cut to tf32 (its top 19 bits), as the tensor cores read an
+    fp32 operand of a tf32 mma."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _emulated_product(x, w, H, kw, ks, sets, tf32):
+    """x (R, stages * H) @ w (stages * H, C) summed as a grid kernel's warps
+    sum it: each stage's depth in k-tiles of kw (zero past H), k-tile j of
+    a stage to depth slice j % ks and accumulator set (j // ks) % sets;
+    per k-tile one tensor-core step, taken here as the product's exact sum
+    rounded to fp32 once and added to its fp32 accumulator; fp32 operands
+    split into tf32 big (rounded to nearest) + small (the rest, which the
+    mma cuts to tf32), three accumulators (big*big, small*big, big*small)
+    per set, summed as acc0 + (acc1 + acc2); the sets added in order, then
+    the slices."""
+    R, D = x.shape
+    S = D // H
+    kts = -(-H // kw)
+    pad = kts * kw - H
+    xs = torch.nn.functional.pad(x.view(R, S, H), (0, pad)).view(R, S, kts, kw)
+    ws = torch.nn.functional.pad(w.view(S, H, -1), (0, 0, 0, pad)).view(
+        S, kts, kw, -1)
+    tiles = lambda a, b: torch.einsum("rskd,skdc->skrc", a.double(),
+                                      b.double()).float()
+    if tf32:
+        xh, wh = _tf32(xs), _tf32(ws)
+        xl, wl = _tf32_trunc(xs - xh), _tf32_trunc(ws - wh)
+        parts = [tiles(xh, wh), tiles(xl, wh), tiles(xh, wl)]
+    else:
+        parts = [tiles(xs, ws)]
+    acc = torch.zeros(ks, sets, len(parts), R, w.shape[1])
+    for s in range(S):
+        for j in range(kts):
+            for a, part in enumerate(parts):
+                acc[j % ks, (j // ks) % sets, a] += part[s, j]
+    per_set = acc[:, :, 0] + (acc[:, :, 1] + acc[:, :, 2]) if tf32 \
+        else acc[:, :, 0]
+    v = per_set[:, 0]
+    for q in range(1, sets):
+        v = v + per_set[:, q]
+    dot = v[0]
+    for s in range(1, ks):
+        dot = dot + v[s]
+    return dot
+
+
+def _emulated_grid_products(W, lvec, B, N, tf32):
+    """The forward's and the reverse's step products as the grid kernels
+    compute them for N columns a CTA at batch B (as `product` hooks of the
+    plain recurrences): per unit u, [h_u | h_{u-1}] @ Wf[u] and [dg_u |
+    dg_{u+1}] @ Wb[u]^T in stages of H, on min(B, 32) rows a pass."""
+    U = lvec.numel()
+    H = W.shape[0] // U
+    wf, wb = (x.float() for x in unit_blocks(W, lvec))
+    kw = 8 if tf32 else 16
+    rows = min(B, 32)
+    nt_f, mt_b = -(-rows // 8), -(-rows // 16)
+    sets_for = lambda nt: 1 if nt >= 3 else 4 // nt
+    ks_f, sets_f = 32 // N, sets_for(nt_f)
+    ks_b, sets_b = 8 // mt_b, sets_for(N // 8)
+
+    def fwd(h, _):
+        hu = h.view(B, U, H)
+        below = torch.cat([torch.zeros_like(hu[:, :1]), hu[:, :-1]], 1)
+        out = torch.empty(B, 4, U, H)
+        for u in range(U):
+            x = torch.cat([hu[:, u], below[:, u]], 1)
+            out[:, :, u] = _emulated_product(x, wf[u], H, kw, ks_f, sets_f,
+                                             tf32).view(B, 4, H)
+        return out.view(B, 4 * U * H)
+
+    def bwd(dg, _):
+        d = dg.view(B, 4, U, H)
+        above = torch.cat([d[:, :, 1:], torch.zeros_like(d[:, :, :1])], 2)
+        out = torch.empty(B, U, H)
+        for u in range(U):
+            x = torch.cat([d[:, :, u].reshape(B, -1),
+                           above[:, :, u].reshape(B, -1)], 1)
+            out[:, u] = _emulated_product(x, wb[u].t(), H, kw, ks_b, sets_b,
+                                          tf32)
+        return out.view(B, U * H)
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depths,h,b,s", [((3,), 256, 2, 24),
+                                          ((5, 5), 64, 3, 24)])
+def test_grid_tensor_core_products_hold_the_bars(dtype, depths, h, b, s):
+    """The grid kernels' tensor-core arithmetic, emulated on the CPU in the
+    kernels' summation order (3xTF32 for fp32 storage: the big part rounded
+    as cvt.rna.tf32.f32 rounds, the rest cut to tf32 as the mma reads it;
+    bf16 operands, fp32 sums for bf16) and run through the plain
+    recurrences, against the plain recurrences at the card's bars: forward
+    max-abs 1e-5 (fp32) / 1.6e-2 (bf16; the stored gates per element to
+    that times max(1, |g|)), reverse 1e-5 / 3e-2 of max|plain|."""
+    fp32 = dtype == torch.float32
+    args = _recurrence_inputs(31, b, s, h, depths, dtype)
+    W, lvec = args[0], args[5]
+    fwd_p, bwd_p = _emulated_grid_products(W, lvec, b, 8, fp32)
+    want = wavefront_fwd_plain(*args, s, with_residuals=True)
+    got = wavefront_fwd_plain(*args, s, with_residuals=True, product=fwd_p)
+    tol = 1e-5 if fp32 else 1.6e-2
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = w.float().abs().clamp_min(1.0) if i == 3 else 1.0
+        assert ((g.float() - w.float()).abs() / scale).max().item() <= tol
+    bargs = _bwd_inputs(32, args, s)
+    want = wavefront_bwd_plain(*bargs, s)
+    got = wavefront_bwd_plain(*bargs, s, product=bwd_p)
+    btol = 1e-5 if fp32 else 3e-2
+    for g, w in zip(got, want):
+        assert ((g.float() - w.float()).abs().max().item()
+                <= btol * w.float().abs().max().item())
+
+
+def test_emulated_product_is_the_exact_sum():
+    """The emulation itself: on values that are already tf32 (fp32 case) or
+    bf16, with sums exact in fp32, it gives x @ w exactly, whatever the
+    slices and sets."""
+    r = np.random.default_rng(33)
+    x = torch.as_tensor(r.integers(-8, 8, (5, 2 * 24)).astype(np.float32))
+    w = torch.as_tensor(r.integers(-8, 8, (2 * 24, 12)).astype(np.float32))
+    for tf32, kw in ((True, 8), (False, 16)):
+        for ks, sets in ((1, 1), (4, 1), (2, 4), (8, 2)):
+            got = _emulated_product(x, w, 24, kw, ks, sets, tf32)
+            assert torch.equal(got, x @ w)
 
 
 @pytest.fixture
@@ -621,13 +840,16 @@ def test_gradients_flow_through_the_kernels(cuda_device):
 # (depths, H, B, S): the shapes the cluster kernels refuse, which the grid
 # kernels take: the forecast decoder's LSTM(256, 3) and the predict-st
 # decoder's LSTM(256, 2) at the smoke's B=32, S=300 and at B = 2 and 64;
-# two 4-layer H=128 encoders; two 5-layer H=64 encoders; and ragged small
+# two 4-layer H=128 encoders; two 5-layer H=64 encoders; ragged small
 # cases (a batch that is no multiple of the kernels' row chunks, 9 units
-# of H=8)
+# of H=8); and a 2-layer H=512 stream, whose fp32 forward holds one stage
+# buffer for its two stages a step (a ring, as the fp32 H=512 reverse's
+# one buffer for eight), in one pass (B=32) and in two (B=40)
 GRID_CASES = [((3,), 256, 32, 300), ((2,), 256, 32, 300),
               ((4, 4), 128, 32, 300), ((5, 5), 64, 32, 300),
               ((3,), 256, 2, 40), ((2,), 256, 64, 40),
-              ((3,), 256, 5, 17), ((5, 4), 64, 19, 40), ((9,), 8, 3, 17)]
+              ((3,), 256, 5, 17), ((5, 4), 64, 19, 40), ((9,), 8, 3, 17),
+              ((2,), 512, 32, 17), ((2,), 512, 40, 9)]
 
 
 @pytest.mark.cuda

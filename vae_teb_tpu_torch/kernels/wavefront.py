@@ -21,10 +21,12 @@ group of M batch rows, each CTA holding its unit's weight blocks in shared
 memory for all K steps (`unit_blocks`, `_launch_plan`). Shapes no cluster
 takes (more than 8 units, 4H over 256 threads, a unit's weights over the
 shared memory of a CTA) run on the grid kernels (`wavefront_grid_fwd.cu`,
-`wavefront_grid_bwd.cu`): one cooperative launch of U * H / N CTAs, each
-owning N state columns of one unit, one grid-wide barrier per step. Their
-entry points are `wavefront_grid_{fwd,fwd_res,bwd}_{f32,bf16}`, counted in
-the same `entry_launches` and in the same totals.
+`wavefront_grid_bwd.cu`): one cooperative launch of U * H / N CTAs in
+thread-block clusters of CTAs of one unit, each CTA owning N state columns
+of one unit, the units handing each step over through per-unit step flags
+(`_grid_plan`). Their entry points are
+`wavefront_grid_{fwd,fwd_res,bwd}_{f32,bf16}`, counted in the same
+`entry_launches` and in the same totals.
 
 `wavefront_recurrence` is the differentiable recurrence the model calls:
 the serving forward alone (the operator) when no gradient is wanted,
@@ -52,10 +54,12 @@ _SMS = 132               # H100 SXM
 _MAX_ROWS = 10           # batch rows per cluster the kernels are built for
 
 
-_GRID_COLS = (8, 16, 32)  # state columns a grid CTA may own
-_GRID_FWD_ROWS = 16      # batch rows a chunk of the grid kernels' products
-_GRID_BWD_ROWS = 8       # (16 would leave fp32 H=256 no 16-column plan)
-_WARPS = 8               # depth slices of a grid CTA's product
+_GRID_COLS = (8, 16, 32)      # state columns a grid CTA may own
+_GRID_CLUSTERS = (8, 4, 2, 1)  # CTAs of one unit a cluster may hold
+_GRID_ROWS = 32              # batch rows a pass of the grid kernels
+_GRID_BUFS = (2, 8)          # most stage buffers: forward, reverse
+_FLAG_STRIDE = 32            # int32 words from a unit's step flag to the next
+_WARPS = 8                   # consumer warps of a grid CTA
 
 
 class LaunchPlan(NamedTuple):
@@ -66,6 +70,10 @@ class LaunchPlan(NamedTuple):
     kind: str = "cluster"   # "cluster" or "grid"
     cols: int = 0    # grid: N, state columns of one unit a CTA owns
     ctas: int = 0    # grid: U * H / N CTAs in the cooperative launch
+    cluster: int = 0   # grid: CTAs a thread-block cluster (of one unit)
+    fwd_bufs: int = 0  # grid: stage buffers of a forward CTA's ring
+    bwd_bufs: int = 0  # ... of a reverse CTA's
+    flags: int = 0     # grid: int32 words of the step flags, U * 32
 
 
 def _smem(M: int, H: int, item: int) -> Tuple[int, int]:
@@ -81,41 +89,91 @@ def _smem(M: int, H: int, item: int) -> Tuple[int, int]:
     return fwd, bwd
 
 
-def _grid_smem(N: int, H: int, item: int) -> Tuple[int, int]:
-    """Shared memory of a forward and a reverse grid CTA owning N columns,
-    as the grid kernels lay it out: the weight slice (2H x 4N forward, 8H
-    x N reverse) and one chunk of h rows (16 of 2H) or dgates rows (8 of
-    8H), both in the storage type, each row padded by 16 bytes, and the
-    8 depth slices' partial sums (fp32)."""
-    pad = 16 // item
-    fwd = (2 * H * 4 * N * item + _GRID_FWD_ROWS * (2 * H + pad) * item
-           + _WARPS * _GRID_FWD_ROWS * 4 * N * 4)
-    bwd = (8 * H * N * item + _GRID_BWD_ROWS * (8 * H + pad) * item
-           + _WARPS * _GRID_BWD_ROWS * N * 4)
-    return fwd, bwd
+def _up128(x: int) -> int:
+    return -(-x // 128) * 128
 
 
-def _grid_plan(U: int, H: int, item: int,
-               resident: Optional[Callable[[int, int, int], int]]
+def _grid_layout(fwd: bool, N: int, H: int, item: int, rows: int,
+                 bufs: int) -> int:
+    """Bytes of shared memory of a forward or reverse grid CTA owning N
+    columns, for `rows` batch rows a pass and a ring of `bufs` stage
+    buffers, as wavefront_grid.cuh::grid_layout lays it out (each region
+    128-byte aligned): 256 bytes of mbarriers; the weight slice as mma
+    fragments (2H x 4N forward, 8H x N reverse, the depth of each of 2 or 8
+    stages rounded up to the mma's 8 (tf32) or 16 (bf16)); the ring, each
+    buffer the pass's rows (rounded up to 8 forward, 16 reverse) of H
+    storage values plus 16 bytes; the depth slices' sums (fp32, 8 / m-tiles
+    slices of those rows by 4N + 8 or N columns); two steps' inputs (4 or 7
+    segments of N a row); the forward's bias (fp32, 4N); the carried state
+    (fp32, 2 or 3 of rows x N)."""
+    kw = 8 if item == 4 else 16
+    kts = -(-H // kw)
+    rs = kts * kw + 16 // item
+    stages = 2 if fwd else 8
+    padded = -(-rows // 8) * 8 if fwd else -(-rows // 16) * 16
+    mt = N // 4 if fwd else padded // 16
+    nt = padded // 8 if fwd else N // 8
+    ks = _WARPS // mt
+    cols = 4 * N if fwd else N
+    off = _up128(256 + (mt if fwd else nt) * stages * kts * 32
+                 * (16 if fwd else 8))
+    off = _up128(off + bufs * padded * rs * item)
+    off = _up128(off + ks * padded * (cols + 8 if fwd else cols) * 4)
+    off = _up128(off + 2 * rows * (4 if fwd else 7) * N * item)
+    off = _up128(off + (16 * N if fwd else 0))
+    return _up128(off + (2 if fwd else 3) * rows * N * 4)
+
+
+def _grid_smem(N: int, H: int, item: int, rows: int, fwd_bufs: int,
+               bwd_bufs: int) -> Tuple[int, int]:
+    """Shared memory of a forward and a reverse grid CTA (`_grid_layout`)."""
+    return (_grid_layout(True, N, H, item, rows, fwd_bufs),
+            _grid_layout(False, N, H, item, rows, bwd_bufs))
+
+
+def _grid_plan(B: int, U: int, H: int, item: int,
+               resident: Optional[Callable[[int, int, int, int], int]]
                ) -> LaunchPlan:
-    """The grid kernels' plan: the fewest columns N (8, 16, 32, dividing
-    H) with which all U * H / N CTAs are resident at once;
-    `resident(N, fwd_smem, bwd_smem)` says how many CTAs the card holds
-    (the CUDA wrappers ask the card), by default one per SM of 132. Raises
-    when no N fits: a cooperative launch cannot run in waves."""
-    tried = []
+    """The grid kernels' plan. Rows a pass: min(B, 32), passes one after
+    another in one launch. Columns N (8, 16, 32, dividing H), the fewest
+    first, whose CTAs' shared memory fits 227 KB with a ring of at least
+    one stage buffer (the most up to 2 forward, 8 reverse); then clusters
+    of CS CTAs of one unit (8, 4, 2, 1 dividing H / N), the largest
+    first; the first (N, CS) with which all U * H / N CTAs are resident
+    at once wins. For bf16 storage every (N, CS >= 4) comes before the
+    smaller clusters: its products are cheap, and a reverse step's eight
+    stages of rows cost less in clusters of 8 of N = 16 than in clusters
+    of 2 of N = 8 (2.205 against 3.024 ms at U=8, H=128, B=32 on an
+    H100, each plan forced through `resident`); fp32, whose 3xTF32
+    products want the most CTAs, keeps N = 8 (2.866-2.993 against 3.189
+    ms there, 3.460-3.560 against 5.832 ms at U=3, H=256).
+    `resident(N, CS, fwd_smem, bwd_smem)` says how many CTAs the card holds
+    in clusters of CS (the CUDA wrappers ask the card,
+    cudaOccupancyMaxActiveClusters), by default whole clusters on 132 SMs.
+    Raises when nothing fits: a cooperative launch cannot run in waves."""
+    rows = min(B, _GRID_ROWS)
+    tried, fits = [], []
     for N in _GRID_COLS:
         if H % N:
             continue
-        fwd, bwd = _grid_smem(N, H, item)
-        if max(fwd, bwd) > _SMEM_LIMIT:
-            tried.append(f"N={N}: {max(fwd, bwd)} bytes of shared memory")
-            break
+        bufs = [next((n for n in range(most, 0, -1) if _grid_layout(
+            fwd, N, H, item, rows, n) <= _SMEM_LIMIT), 0)
+            for fwd, most in zip((True, False), _GRID_BUFS)]
+        if not all(bufs):
+            tried.append(f"N={N}: over {_SMEM_LIMIT} bytes of shared memory")
+            continue
+        fits += [(N, CS, bufs) for CS in _GRID_CLUSTERS if (H // N) % CS == 0]
+    if item == 2:
+        fits.sort(key=lambda f: f[1] < 4)   # stable: N order kept
+    for N, CS, bufs in fits:
+        fwd, bwd = _grid_smem(N, H, item, rows, *bufs)
         ctas = U * H // N
-        held = resident(N, fwd, bwd) if resident else _SMS
+        held = resident(N, CS, fwd, bwd) if resident else _SMS // CS * CS
         if ctas <= held:
-            return LaunchPlan(0, 0, fwd, bwd, "grid", N, ctas)
-        tried.append(f"N={N}: {ctas} CTAs, the card holds {held}")
+            return LaunchPlan(rows, ctas // CS, fwd, bwd, "grid", N, ctas,
+                              CS, bufs[0], bufs[1], U * _FLAG_STRIDE)
+        tried.append(f"N={N} in clusters of {CS}: {ctas} CTAs, the card "
+                     f"holds {held}")
     raise ValueError(f"{U} units of H={H}: no kernel takes this shape (the "
                      f"cluster kernels: more than {_MAX_UNITS} units, 4H "
                      f"over {_MAX_THREADS} threads or over {_SMEM_LIMIT} "
@@ -125,7 +183,7 @@ def _grid_plan(U: int, H: int, item: int,
 
 def _launch_plan(B: int, U: int, H: int, dtype: torch.dtype,
                  resident: Optional[Callable[[int, int, int], int]] = None,
-                 grid_resident: Optional[Callable[[int, int, int], int]]
+                 grid_resident: Optional[Callable[[int, int, int, int], int]]
                  = None) -> LaunchPlan:
     """How the kernels split a batch of B rows over U units of width H.
 
@@ -157,7 +215,7 @@ def _launch_plan(B: int, U: int, H: int, dtype: torch.dtype,
     item = torch.empty((), dtype=dtype).element_size()
     if (U > _MAX_UNITS or 4 * H > _MAX_THREADS
             or max(_smem(1, H, item)) > _SMEM_LIMIT):
-        return _grid_plan(U, H, item, grid_resident)
+        return _grid_plan(B, U, H, item, grid_resident)
     plan = None
     for M in range(1, _MAX_ROWS + 1):
         fwd, bwd = _smem(M, H, item)
@@ -199,22 +257,22 @@ _grid_held: Dict[tuple, int] = {}
 
 
 def _card_grid_resident(device: torch.device, dtype: torch.dtype
-                        ) -> Callable[[int, int, int], int]:
-    """`grid_resident` for `_launch_plan` on a card: the CTAs of N columns
-    that both grid kernels can hold at once (blocks per SM by
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor, times the SMs), asked
-    once per shape."""
-    def held(N: int, fwd_smem: int, bwd_smem: int) -> int:
-        key = (device, dtype, N, fwd_smem, bwd_smem)
+                        ) -> Callable[[int, int, int, int], int]:
+    """`grid_resident` for `_launch_plan` on a card: the CTAs that both grid
+    kernels can hold at once in clusters of CS (cudaOccupancyMaxActiveClusters
+    times CS), asked once per shape; raises on a CUDA error."""
+    def held(N: int, CS: int, fwd_smem: int, bwd_smem: int) -> int:
+        key = (device, dtype, CS, fwd_smem, bwd_smem)
         if key not in _grid_held:
             with torch.cuda.device(device):
-                n = min(_max_ctas(kind)(int(dtype == torch.bfloat16), N, smem)
+                n = min(_max_ctas(kind)(int(dtype == torch.bfloat16), CS, smem)
                         for kind, smem in (("fwd", fwd_smem),
                                            ("bwd", bwd_smem)))
-            if n < 1:
-                raise RuntimeError(f"the card holds no grid CTA with "
+            if n < 0:
+                raise RuntimeError(f"the card's residency of grid CTAs with "
                                    f"{max(fwd_smem, bwd_smem)} bytes of "
-                                   f"shared memory (CUDA error {-n})")
+                                   f"shared memory in clusters of {CS}: "
+                                   f"CUDA error {-n}")
             _grid_held[key] = n
         return _grid_held[key]
     return held
@@ -297,7 +355,7 @@ def _max_clusters(kind: str):
 
 
 def _max_ctas(kind: str):
-    """wavefront_grid_{kind}_max_ctas(bf16, N, smem) -> int."""
+    """wavefront_grid_{kind}_max_ctas(bf16, CS, smem) -> int."""
     fn = build.load(f"wavefront_grid_{kind}.cu")[
         f"wavefront_grid_{kind}_max_ctas"]
     fn.argtypes = [ctypes.c_int] * 3
@@ -305,9 +363,10 @@ def _max_ctas(kind: str):
     return fn
 
 
-def _kernel(source: str, entry: str, n_ptr: int):
+def _kernel(source: str, entry: str, n_ptr: int, n_int: int):
     fn = getattr(build.load(source), entry)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -349,16 +408,18 @@ def _launch(kind: str, entry: str, plan: LaunchPlan, ptrs, K: int, B: int,
     smem = plan.fwd_smem if kind == "fwd" else plan.bwd_smem
     if plan.kind == "grid":
         entry = entry.replace("wavefront_", "wavefront_grid_", 1)
-        source, split = f"wavefront_grid_{kind}.cu", plan.cols
-        # the grid barrier's arrival counter, zero at the start
-        bar = torch.zeros(1, dtype=torch.int32, device=device)
-        ptrs = list(ptrs) + [bar.data_ptr()]
+        source = f"wavefront_grid_{kind}.cu"
+        # the units' step flags, zero at the start of every launch
+        flags = torch.zeros(plan.flags, dtype=torch.int32, device=device)
+        ptrs = list(ptrs) + [flags.data_ptr()]
+        bufs = plan.fwd_bufs if kind == "fwd" else plan.bwd_bufs
+        ints = (K, B, U, H, S, plan.cols, plan.cluster, plan.rows, bufs, smem)
     else:
-        source, split = f"wavefront_{kind}.cu", plan.rows
+        source = f"wavefront_{kind}.cu"
+        ints = (K, B, U, H, S, plan.rows, smem)
     with torch.cuda.device(device):
-        err = _kernel(source, entry, len(ptrs))(
-            *ptrs, K, B, U, H, S, split, smem,
-            torch.cuda.current_stream(device).cuda_stream)
+        err = _kernel(source, entry, len(ptrs), len(ints))(
+            *ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     return entry

@@ -11,29 +11,34 @@
 // for idle units), dc' = dct * f (dc for idle units), with dh, dc and the
 // dgates rounded to the storage type.
 //
-// Design, on the skeleton of wavefront_grid_fwd.cu: one cooperative grid of
-// U * H / N CTAs, CTA (u, j) owning state columns t0 = j N .. t0 + N - 1 of
-// unit u.
-//   - It keeps the W_eff^T rows that produce dh for its columns in shared
-//     memory for all K steps: unit u's recurrent block and unit u+1's feed
-//     block, [8H][N] in the storage type (64 KB fp32 at H = 256, N = 8),
-//     read out of the wrapper's Wb layout [U][8H][H] (wavefront_bwd.cu's).
-//   - Step k, cell phase: the CTA's B x N cells read the carried dh, dc
-//     (dh0, dc0 at k = K-1; then dh_fin, dc_fin, which hold the carried
-//     state, each cell read and written by one thread), dY[k] and the
-//     stored gates and c; they write their four dgates to dgates_seq[k] and
-//     the new dc.
-//   - One grid-wide barrier: dgates_seq[k] is the exchange buffer.
-//   - Product phase: the dgates of units u and u+1 at step k (8H a row, 4H
-//     when unit u+1 is not fed by u) are staged in shared memory through L2
-//     in chunks of RB = 8 rows, in the storage type, by 16-byte cp.async
-//     copies all in flight at once; each warp takes an interleaved slice
-//     of the depth, every lane one column of 32 / N rows; the 8 slices'
-//     partial sums meet in shared memory and dh' is formed and stored.
-// What bounds it on the card: 2 * H * 4H fp32 FMAs per non-zero block, per
-// row, per step a unit runs, as the forward (0.376 ms at B = 32, S = 300,
-// H = 256, 3 units). One barrier per step, and every CTA rereads two
-// units' dgates from L2 per step.
+// Design, on the grid of wavefront_grid_fwd.cu (wavefront_grid.cuh has the
+// machinery): U * H / N CTAs, CTA (u, j) owning state columns t0 = j N ..
+// t0 + N - 1 of unit u, with the W_eff^T rows that produce dh for them
+// (unit u's recurrent block and unit u+1's feed block, [8H][N], read out of
+// the wrapper's Wb layout [U][8H][H]) resident in shared memory for all K
+// steps as mma fragments. Step k:
+//   - cells: the CTA's dgates of step k from the carried dh, dc (shared
+//     memory; dh_fin and dc_fin are written once, at the end) and the
+//     step's stored gates, c, c_prev and dY, which the producer warp copied
+//     a step or two ahead; the dgates go to dgates_seq[k], and the CTA
+//     publishes them on its unit's step flag (release);
+//   - product: dz = [dg_u | dg_{u+1}] @ W rows over 8H (4H when unit u+1
+//     is not fed by u). The producer waits, with acquire loads, only on the
+//     flags of units u and u+1, then brings the dgates in eight stages (one
+//     unit's gate q each, all the pass's rows), fetched once per cluster
+//     of CTAs of unit u: each CTA bulk-copies 1/CS of the rows from L2,
+//     multicast into the cluster's shared memory, into a ring of up to 8
+//     buffers, so the product of one stage overlaps the copies of the next.
+//     The product runs on the tensor cores (mma.sync m16n8k8 3xTF32 for
+//     fp32 storage, m16n8k16 bf16 for bf16), the batch rows as M, the N
+//     columns as n8 tiles, the depth split over the warps.
+// What bounds it on the card: not the 2 * H * 4H FMAs per non-zero block,
+// per row, per step a unit runs (0.376 ms at B = 32, S = 300, H = 256, 3
+// units, at 67 TFLOP/s), but the step's latency: its product needs two
+// units' dgates of the same step from other CTAs (a flag and a copy through
+// L2), and it moves 4x the forward's rows (8H a row), which at fp32 and H =
+// 256 do not all fit in shared memory at once: the ring refills a buffer
+// once every CTA of the cluster is done with it.
 //
 // Plain C interface: each entry point launches on the given stream and
 // returns the CUDA error of the launch (0 on success).
@@ -42,151 +47,271 @@
 
 namespace {
 
-constexpr int RB = 8;  // batch rows a chunk of the product
-
-size_t smem_bytes(int N, int H, size_t item) {
-  return (size_t)8 * H * N * item                  // W_eff^T rows [8H][N]
-         + (size_t)RB * (8 * H + 16 / item) * item  // dgates rows of a chunk
-         + (size_t)WARPS * RB * N * 4;              // partial dz of 8 slices
-}
+template <typename T>
+struct BwdParams {
+  const T* wb;  // [U][8H][H]
+  const T* gates_seq;
+  const T* c_seq;
+  const T* c_prev_seq;
+  const T* dy;
+  const T* dh0;
+  const T* dc0;
+  const int* lvec;
+  T* dgates_seq;
+  T* dh_fin;
+  T* dc_fin;
+  unsigned* flags;
+  int K, B, U, H, S, N, CS, MB, NBUF;
+};
 
 // x * y * (1 - y), evaluated left to right without contraction
 __device__ __forceinline__ float mul_dsig(float x, float y) {
   return __fmul_rn(__fmul_rn(x, y), __fsub_rn(1.0f, y));
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(THREADS, 1)
-    wavefront_grid_bwd_kernel(const T* __restrict__ wb,
-                              const T* __restrict__ gates_seq,
-                              const T* __restrict__ c_seq,
-                              const T* __restrict__ c_prev_seq,
-                              const T* __restrict__ dy,
-                              const T* __restrict__ dh0,
-                              const T* __restrict__ dc0,
-                              const int* __restrict__ lvec, T* dgates_seq,
-                              T* dh_fin, T* dc_fin, unsigned* bar, int K,
-                              int B, int U, int H, int S) {
-  constexpr int GR = 32 / N;   // row groups of a warp
-  constexpr int RL = RB / GR;  // rows a lane
-  const int u = blockIdx.x / (H / N);
-  const int t0 = (blockIdx.x % (H / N)) * N;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rg = lane / N, cl = lane % N;
-  const int UH = U * H, G = 4 * UH;
-  const int layer = lvec[u];
-  const bool feed_out = u + 1 < U && lvec[u + 1] > 0;
-  const int D = feed_out ? 8 * H : 4 * H;  // own gates, then unit u+1's
-  constexpr int V = 16 / sizeof(T);        // storage values a 16-byte copy
-  const int DS = 8 * H + V;                // dgates row stride
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* w_s = reinterpret_cast<T*>(smem);  // [8H][N]
-  T* d_s = w_s + (size_t)8 * H * N;     // [RB][DS]
-  float* part = reinterpret_cast<float*>(d_s + RB * DS);  // [WARPS][RB][N]
-
-  for (int i = tid; i < D * N; i += THREADS) {
-    const int j = i / N, c = i % N;
-    w_s[i] = wb[((size_t)u * 8 * H + j) * H + t0 + c];
-  }
-  __syncthreads();
-
-  for (int k = K - 1; k >= 0; --k) {
-    const bool valid = layer <= k && k < S + layer;
-    const T* dh_src = k == K - 1 ? dh0 : dh_fin;
-    const T* dc_src = k == K - 1 ? dc0 : dc_fin;
-    const size_t kb = (size_t)k * B;
-    // cell phase: this CTA's dgates of step k and the carried dc
-    for (int cell = tid; cell < B * N; cell += THREADS) {
-      const int row = cell / N, col = u * H + t0 + cell % N;
-      const size_t off = (kb + row) * UH + col, goff = (kb + row) * G + col;
-      const float dh_tot =
-          __fadd_rn(load_cg(dh_src + (size_t)row * UH + col), load_f32(dy + off));
-      const float dc = load_cg(dc_src + (size_t)row * UH + col);
-      const float ig = sigmoid(load_f32(gates_seq + goff));
-      const float fg = sigmoid(load_f32(gates_seq + goff + UH));
-      const float gt = tanhf(load_f32(gates_seq + goff + 2 * UH));
-      const float og = sigmoid(load_f32(gates_seq + goff + 3 * UH));
-      const float tc = tanhf(load_f32(c_seq + off));
-      const float cprev = load_f32(c_prev_seq + off);
-      const float d_o = __fmul_rn(dh_tot, tc);
-      const float dct = __fadd_rn(
-          dc, __fmul_rn(__fmul_rn(dh_tot, og),
-                        __fsub_rn(1.0f, __fmul_rn(tc, tc))));
-      float dg[4] = {0.f, 0.f, 0.f, 0.f};
-      if (valid) {
-        dg[0] = mul_dsig(__fmul_rn(dct, gt), ig);
-        dg[1] = mul_dsig(__fmul_rn(dct, cprev), fg);
-        dg[2] = __fmul_rn(__fmul_rn(dct, ig), __fsub_rn(1.0f, __fmul_rn(gt, gt)));
-        dg[3] = mul_dsig(d_o, og);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) store(dgates_seq + goff + q * UH, dg[q]);
-      store(dc_fin + (size_t)row * UH + col, valid ? __fmul_rn(dct, fg) : dc);
-    }
-    grid_barrier(bar, K - k);  // dgates_seq[k] complete
-    // product phase: dz = [dg_u | dg_{u+1}] @ W_eff^T rows, then dh
-    for (int r0 = 0; r0 < B; r0 += RB) {
-      // the chunk's dgates rows, V values a copy: segment (unit, q) of H
-      // values each; rows past the batch are zeros
-      for (int i = tid; i < RB * (D / V); i += THREADS) {
-        const int m = i / (D / V), j = (i % (D / V)) * V, row = r0 + m;
-        T* dst = d_s + m * DS + j;
-        if (row < B) {
-          const int unit = u + j / (4 * H), q = (j / H) % 4, t = j % H;
-          cp_async16(dst, dgates_seq + (kb + row) * G + q * UH + unit * H + t);
-        } else {
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-        }
-      }
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      float acc[RL];
-#pragma unroll
-      for (int r = 0; r < RL; ++r) acc[r] = 0.f;
-      for (int d4 = warp; d4 < D / 4; d4 += WARPS) {
-        const float w0 = load_f32(w_s + (4 * d4) * N + cl);
-        const float w1 = load_f32(w_s + (4 * d4 + 1) * N + cl);
-        const float w2 = load_f32(w_s + (4 * d4 + 2) * N + cl);
-        const float w3 = load_f32(w_s + (4 * d4 + 3) * N + cl);
-#pragma unroll
-        for (int r = 0; r < RL; ++r) {
-          const float4 dv = load4(d_s + (rg + GR * r) * DS + 4 * d4);
-          acc[r] = fmaf(dv.w, w3, fmaf(dv.z, w2, fmaf(dv.y, w1,
-                                                      fmaf(dv.x, w0, acc[r]))));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RL; ++r)
-        part[(warp * RB + rg + GR * r) * N + cl] = acc[r];
-      __syncthreads();
-      for (int cell = tid; cell < RB * N; cell += THREADS) {
-        const int m = cell / N, row = r0 + m;
-        if (row >= B) continue;
-        const int col = u * H + t0 + cell % N;
-        const float* p = part + cell;
-        float dz = p[0];
-#pragma unroll
-        for (int s = 1; s < WARPS; ++s) dz = __fadd_rn(dz, p[s * RB * N]);
-        if (!valid)  // an idle unit carries dh_tot through
-          dz = __fadd_rn(dz, __fadd_rn(load_cg(dh_src + (size_t)row * UH + col),
-                                       load_f32(dy + (kb + row) * UH + col)));
-        store(dh_fin + (size_t)row * UH + col, dz);
-      }
-      __syncthreads();  // d_s and part are refilled by the next chunk
-    }
-  }
+// Wb[u] at depth j (0..8H-1), state column t, as raw storage bits
+template <typename T>
+__device__ __forceinline__ unsigned wb_bits(const BwdParams<T>& p, int u,
+                                            int j, int t) {
+  const size_t i = ((size_t)u * 8 * p.H + j) * p.H + t;
+  if (sizeof(T) == 4) return reinterpret_cast<const unsigned*>(p.wb)[i];
+  return reinterpret_cast<const unsigned short*>(p.wb)[i];
 }
 
-#define GRID_BWD_CASE(n) \
-  case n:                \
-    return (const void*)wavefront_grid_bwd_kernel<T, n>;
+// NT: n8 tiles of state columns, N / 8
+template <typename T, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+    wavefront_grid_bwd_kernel(const BwdParams<T> p) {
+  constexpr bool TF32 = sizeof(T) == 4;
+  constexpr int SETS = sets_for(NT);
+  constexpr int SEGS = 7;  // input segments a row: 4 gates, c, c_prev, dY
+  const int K = p.K, B = p.B, H = p.H, N = p.N, CS = p.CS, MB = p.MB;
+  const int NBUF = p.NBUF, UH = p.U * H, G = 4 * UH, per_unit = H / N;
+  const int u = blockIdx.x / per_unit, t0 = (blockIdx.x % per_unit) * N;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int layer = p.lvec[u];
+  const bool feed_out = u + 1 < p.U && p.lvec[u + 1] > 0;
+  const int nstage = feed_out ? 8 : 4;  // unit u's gates, then unit u+1's
+  const Layout L = grid_layout<T, false>(H, N, MB, NBUF);
+  const int KTT = L.stages * L.kts;
+  const int E = (B + MB - 1) / MB * K;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned bars = smem_addr(smem);
+  unsigned* w_s = reinterpret_cast<unsigned*>(smem + L.w);
+  const T* buf_s = reinterpret_cast<const T*>(smem + L.buf);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  T* in_s = reinterpret_cast<T*>(smem + L.in);
+  float* dh_c = reinterpret_cast<float*>(smem + L.carry);  // [MB][N]
+  float* dc_c = dh_c + MB * N;
+  float* dht_c = dc_c + MB * N;  // dh_tot, which an idle unit carries
+
+  grid_init_barriers(bars, NBUF, CS);
+  for (int i = tid; i < (int)(NBUF * L.rows * L.rs * sizeof(T) / 16);
+       i += THREADS)
+    reinterpret_cast<uint4*>(smem + L.buf)[i] = make_uint4(0, 0, 0, 0);
+  // B fragments of the weight slice: [nt][KTT][lane][2], register r of lane
+  // (g, t) holding W[d][n] at n = 8 nt + g, d = kw j + (t, or 2t and 2t+1
+  // for bf16) (+kw/2 for r = 1); W[s H + d][c] = Wb[u][s H + d][t0 + c],
+  // zero past H and for the feed stages of a unit that feeds none
+  for (int i = tid; i < L.nt * KTT * 64; i += THREADS) {
+    const int r = i & 1, ln = (i >> 1) & 31, f = i >> 6;
+    const int kt = f % KTT, ntile = f / KTT, s = kt / L.kts;
+    const int c = ntile * 8 + ln / 4;
+    int d = (kt % L.kts) * L.kw + r * (L.kw / 2);
+    unsigned v = 0;
+    if (TF32) {
+      d += ln % 4;
+      if (d < H && s < nstage) v = wb_bits(p, u, s * H + d, t0 + c);
+    } else {
+      d += 2 * (ln % 4);
+      if (d < H && s < nstage)
+        v = wb_bits(p, u, s * H + d, t0 + c) |
+            wb_bits(p, u, s * H + d + 1, t0 + c) << 16;
+    }
+    w_s[i] = v;
+  }
+  grid_start(CS);
+
+  const bool ring = NBUF < nstage;  // else stage s keeps buffer s
+
+  if (warp == WARPS) {
+    // ---- producer: the stages of every step, the inputs two steps ahead --
+    const unsigned rank = CS > 1 ? cluster_rank() : 0;
+    const unsigned short mask = (unsigned short)((1u << CS) - 1);
+    const unsigned seg = H * sizeof(T);
+    const unsigned ring_s = smem_addr(smem + L.buf);
+    // step e's gates, c, c_prev and dY slices: per row SEGS segments of N
+    // values, lane l taking segment l % 8 (none for 7) of rows l / 8, l / 8 +
+    // 4, ..., 16 bytes a copy
+    const int V = 16 / sizeof(T), q_in = lane % 8;
+    const T* in_src = q_in < 4 ? p.gates_seq + q_in * UH
+                               : q_in == 4 ? p.c_seq
+                               : q_in == 5 ? p.c_prev_seq : p.dy;
+    const size_t in_stride = q_in < 4 ? G : UH;
+    auto inputs = [&](int e) {
+      const int j = e & 1, k = K - 1 - e % K, r0 = e / K * MB;
+      const int rows = min(MB, B - r0);
+      if (q_in < SEGS)
+        for (int m = lane / 8; m < rows; m += 4) {
+          T* dst = in_s + ((size_t)(j * MB + m) * SEGS + q_in) * N;
+          const T* src =
+              in_src + ((size_t)k * B + r0 + m) * in_stride + u * H + t0;
+          for (int v = 0; v < N; v += V) cp_async16(dst + v, src + v);
+        }
+      cp_async_arrive(in_bar(bars, j));
+    };
+    int g = 0;
+    inputs(0);
+    if (E > 1) inputs(1);
+    for (int e = 0; e < E; ++e) {
+      const int k = K - 1 - e % K, r0 = e / K * MB, rows = min(MB, B - r0);
+      for (int s = 0; s < nstage; ++s, ++g) {
+        const int unit = u + s / 4, q = s % 4;
+        // dgates_seq[k] of `unit` is complete; for unit u this also says
+        // that every CTA of the cluster is past its product of step e-1
+        if (q == 0)
+          wait_flag(p.flags + unit * FLAG_STRIDE, (e + 1) * per_unit, lane);
+        const Slot sl = stage_slot(ring, NBUF, g, s, e);
+        if (ring && sl.use > 0)
+          mbar_wait(empty_bar(bars, sl.buf), (sl.use - 1) & 1);
+        if (lane == 0) mbar_expect(full_bar(bars, sl.buf), rows * seg);
+        __syncwarp();
+        const unsigned dst = ring_s + sl.buf * L.rows * L.rs * sizeof(T);
+        const T* src = p.dgates_seq + (size_t)k * B * G + q * UH + unit * H;
+        for (int r = rank + CS * lane; r < rows; r += 32 * CS) {
+          if (CS > 1)
+            bulk_copy_mc(dst + r * L.rs * sizeof(T), src + (size_t)(r0 + r) * G,
+                         seg, full_bar(bars, sl.buf), mask);
+          else
+            bulk_copy(dst + r * L.rs * sizeof(T), src + (size_t)(r0 + r) * G,
+                      seg, full_bar(bars, sl.buf));
+        }
+      }
+      // this CTA's cells of step e are done (its unit's flag counted them
+      // above): step e+2's inputs take their buffer
+      if (e + 2 < E) inputs(e + 2);
+    }
+  } else {
+    // ---- consumers: the cells, then the product ----
+    const int mtile = warp % L.mt, slice = warp / L.mt;
+    int g = 0;
+    for (int e = 0; e < E; ++e) {
+      const int kk = e % K, k = K - 1 - kk, r0 = e / K * MB;
+      const int rows = min(MB, B - r0);
+      const bool valid = layer <= k && k < p.S + layer;
+      mbar_wait(in_bar(bars, e & 1), (e >> 1) & 1);
+      const T* xin = in_s + (size_t)(e & 1) * MB * SEGS * N;
+      for (int cell = tid; cell < rows * N; cell += CONSUMERS) {
+        const int m = cell / N, c = cell % N, row = r0 + m;
+        const int col = u * H + t0 + c;
+        const T* x = xin + m * SEGS * N + c;
+        float dh, dc;
+        if (kk == 0) {
+          dh = load_f32(p.dh0 + (size_t)row * UH + col);
+          dc = load_f32(p.dc0 + (size_t)row * UH + col);
+        } else {
+          dh = dh_c[cell];
+          dc = dc_c[cell];
+        }
+        const float dh_tot = __fadd_rn(dh, load_f32(x + 6 * N));
+        const float ig = sigmoid(load_f32(x));
+        const float fg = sigmoid(load_f32(x + N));
+        const float gt = tanhf(load_f32(x + 2 * N));
+        const float og = sigmoid(load_f32(x + 3 * N));
+        const float tc = tanhf(load_f32(x + 4 * N));
+        const float cprev = load_f32(x + 5 * N);
+        const float d_o = __fmul_rn(dh_tot, tc);
+        const float dct = __fadd_rn(
+            dc, __fmul_rn(__fmul_rn(dh_tot, og),
+                          __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+        float dg[4] = {0.f, 0.f, 0.f, 0.f};
+        if (valid) {
+          dg[0] = mul_dsig(__fmul_rn(dct, gt), ig);
+          dg[1] = mul_dsig(__fmul_rn(dct, cprev), fg);
+          dg[2] = __fmul_rn(__fmul_rn(dct, ig),
+                            __fsub_rn(1.0f, __fmul_rn(gt, gt)));
+          dg[3] = mul_dsig(d_o, og);
+        }
+        T* gp = p.dgates_seq + ((size_t)k * B + row) * G + col;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) store(gp + q * UH, dg[q]);
+        dc_c[cell] = round_to(valid ? __fmul_rn(dct, fg) : dc, p.dh0);
+        dht_c[cell] = dh_tot;
+      }
+      consumers_sync();  // every dgates_seq[k] store of this CTA is issued
+      if (tid == 0) publish_step(p.flags + u * FLAG_STRIDE);
+
+      float acc[SETS][NT][3][4];
+      zero_acc(acc);
+      for (int s = 0; s < nstage; ++s, ++g) {
+        const Slot sl = stage_slot(ring, NBUF, g, s, e);
+        mbar_wait(full_bar(bars, sl.buf), sl.use & 1);
+        const T* stg = buf_s + (size_t)sl.buf * L.rows * L.rs;
+        // A: dgates of batch rows 16 mtile + g (+8) at depth kw j + t
+        // (+4), or the bf16 pairs at 2t (+8): 32-bit words 8j + t, 8j + t
+        // + 4 (a k-tile is 8 words in both); B: the weight fragments
+        const unsigned* lo_row = reinterpret_cast<const unsigned*>(
+            stg + (size_t)(mtile * 16 + g8) * L.rs);
+        const unsigned* hi_row = reinterpret_cast<const unsigned*>(
+            stg + (size_t)(mtile * 16 + g8 + 8) * L.rs);
+        const uint2* wb2 = reinterpret_cast<const uint2*>(w_s) +
+                           s * L.kts * 32 + lane;
+        stage_product<T, NT, SETS>(
+            acc, slice, L.kts, L.ks,
+            [&](int j, unsigned (&a)[4]) {
+              a[0] = lo_row[8 * j + t4];
+              a[1] = hi_row[8 * j + t4];
+              a[2] = lo_row[8 * j + t4 + 4];
+              a[3] = hi_row[8 * j + t4 + 4];
+            },
+            [&](int j, int n, unsigned (&b)[2]) {
+              const uint2 wv = wb2[(n * KTT + j) * 32];
+              b[0] = wv.x;
+              b[1] = wv.y;
+            });
+        if (ring) release_stage(empty_bar(bars, sl.buf), CS, warp, lane);
+      }
+      // this slice's sums: D[m][n] at row m = 16 mtile + g (+8), column
+      // n = 8 nt + 2t (+1) -> part[slice][m][n]
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = mtile * 16 + g8 + (i / 2) * 8;
+          const int c = n * 8 + 2 * t4 + i % 2;
+          part[((size_t)slice * L.rows + m) * L.ps + c] =
+              acc_sum(acc, n, i, TF32);
+        }
+      consumers_sync();
+      for (int cell = tid; cell < rows * N; cell += CONSUMERS) {
+        const int m = cell / N, c = cell % N, row = r0 + m;
+        const float* pp = part + (size_t)m * L.ps + c;
+        float dz = pp[0];
+        for (int s = 1; s < L.ks; ++s)
+          dz = __fadd_rn(dz, pp[(size_t)s * L.rows * L.ps]);
+        if (!valid) dz = __fadd_rn(dz, dht_c[cell]);  // idle: carries dh_tot
+        dh_c[cell] = round_to(dz, p.dh0);
+        if (kk == K - 1) {
+          const size_t off = (size_t)row * UH + u * H + t0 + c;
+          store(p.dh_fin + off, dz);
+          store(p.dc_fin + off, dc_c[cell]);
+        }
+      }
+    }
+  }
+  grid_end(CS);
+}
 
 // the kernel for N state columns a CTA, N in {8, 16, 32}
 template <typename T>
 const void* kernel_for(int N) {
-  switch (N) { GRID_BWD_CASE(8) GRID_BWD_CASE(16) GRID_BWD_CASE(32) }
+  switch (N) {
+    case 8: return (const void*)wavefront_grid_bwd_kernel<T, 1>;
+    case 16: return (const void*)wavefront_grid_bwd_kernel<T, 2>;
+    case 32: return (const void*)wavefront_grid_bwd_kernel<T, 4>;
+  }
   return nullptr;
 }
 
@@ -194,50 +319,47 @@ template <typename T>
 int launch(const void* wb, const void* gates_seq, const void* c_seq,
            const void* c_prev_seq, const void* dy, const void* dh0,
            const void* dc0, const void* lvec, void* dgates_seq, void* dh_fin,
-           void* dc_fin, void* bar, int K, int B, int U, int H, int S, int N,
-           int smem, void* stream) {
-  const void* kernel = kernel_for<T>(N);
-  if (kernel == nullptr || H % N || H % 8 ||
-      (size_t)smem != smem_bytes(N, H, sizeof(T)))
+           void* dc_fin, void* flags, int K, int B, int U, int H, int S, int N,
+           int CS, int MB, int NBUF, int smem, void* stream) {
+  if (!grid_args_ok(H, N, CS, MB, NBUF, smem,
+                    grid_layout<T, false>(H, N, MB, NBUF).total))
     return (int)cudaErrorInvalidValue;
-  void* args[] = {&wb,  &gates_seq,  &c_seq,  &c_prev_seq, &dy,
-                  &dh0, &dc0,        &lvec,   &dgates_seq, &dh_fin,
-                  &dc_fin, &bar,     &K,      &B,          &U,
-                  &H,   &S};
-  return launch_grid(kernel, U * H / N, smem, args, stream);
+  BwdParams<T> p = {(const T*)wb,        (const T*)gates_seq,
+                    (const T*)c_seq,     (const T*)c_prev_seq,
+                    (const T*)dy,        (const T*)dh0,
+                    (const T*)dc0,       (const int*)lvec,
+                    (T*)dgates_seq,      (T*)dh_fin,
+                    (T*)dc_fin,          (unsigned*)flags,
+                    K, B, U, H, S, N, CS, MB, NBUF};
+  return grid_launch(kernel_for<T>(N), &p, U * H / N, CS, smem, stream);
 }
 
 }  // namespace
 
-extern "C" int wavefront_grid_bwd_f32(const void* wb, const void* gates_seq,
-                                      const void* c_seq,
-                                      const void* c_prev_seq, const void* dy,
-                                      const void* dh0, const void* dc0,
-                                      const void* lvec, void* dgates_seq,
-                                      void* dh_fin, void* dc_fin, void* bar,
-                                      int K, int B, int U, int H, int S,
-                                      int N, int smem, void* stream) {
+#define GRID_BWD_ARGS                                                       \
+  const void *wb, const void *gates_seq, const void *c_seq,                \
+      const void *c_prev_seq, const void *dy, const void *dh0,             \
+      const void *dc0, const void *lvec, void *dgates_seq, void *dh_fin,   \
+      void *dc_fin, void *flags, int K, int B, int U, int H, int S, int N, \
+      int CS, int MB, int NBUF, int smem, void *stream
+
+extern "C" int wavefront_grid_bwd_f32(GRID_BWD_ARGS) {
   return launch<float>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0, lvec,
-                       dgates_seq, dh_fin, dc_fin, bar, K, B, U, H, S, N,
-                       smem, stream);
+                       dgates_seq, dh_fin, dc_fin, flags, K, B, U, H, S, N,
+                       CS, MB, NBUF, smem, stream);
 }
 
-extern "C" int wavefront_grid_bwd_bf16(const void* wb, const void* gates_seq,
-                                       const void* c_seq,
-                                       const void* c_prev_seq, const void* dy,
-                                       const void* dh0, const void* dc0,
-                                       const void* lvec, void* dgates_seq,
-                                       void* dh_fin, void* dc_fin, void* bar,
-                                       int K, int B, int U, int H, int S,
-                                       int N, int smem, void* stream) {
+extern "C" int wavefront_grid_bwd_bf16(GRID_BWD_ARGS) {
   return launch<__nv_bfloat16>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0,
-                               lvec, dgates_seq, dh_fin, dc_fin, bar, K, B, U,
-                               H, S, N, smem, stream);
+                               lvec, dgates_seq, dh_fin, dc_fin, flags, K, B,
+                               U, H, S, N, CS, MB, NBUF, smem, stream);
 }
 
-// How many CTAs of the reverse wavefront for N columns the card holds at
-// once, or minus the CUDA error.
-extern "C" int wavefront_grid_bwd_max_ctas(int bf16, int N, int smem) {
-  return max_ctas(bf16 ? kernel_for<__nv_bfloat16>(N) : kernel_for<float>(N),
-                  smem);
+// How many CTAs of the reverse wavefront (four n8 tiles) the card holds at
+// once in clusters of CS with `smem` bytes of shared memory, or minus the
+// CUDA error. The narrower ones have the same shared memory and no more
+// registers.
+extern "C" int wavefront_grid_bwd_max_ctas(int bf16, int CS, int smem) {
+  return grid_max_ctas(
+      bf16 ? kernel_for<__nv_bfloat16>(32) : kernel_for<float>(32), smem, CS);
 }

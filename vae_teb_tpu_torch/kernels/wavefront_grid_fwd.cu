@@ -19,35 +19,33 @@
 // The forecast and predict-st decoders' LSTM(256, 3) and LSTM(256, 2) need
 // 2 MB of fp32 weights a unit (and 1024 threads), wider encoders (H = 128)
 // 512 KB, and 5-layer encoder pairs 10 units: none fits a CTA or a
-// cluster. Here the units' columns are spread over the whole card.
-//   - One cooperative launch (cudaLaunchCooperativeKernel) of U * H / N
-//     CTAs, all resident at once (kernels/wavefront.py::_launch_plan asks
-//     the card how many it holds and picks N from 8, 16, 32, the fewest
-//     columns with which they fit). CTA (u, j) owns state columns t0 = j N
-//     .. t0 + N - 1 of unit u and all four gate columns q H + t of each.
-//   - It keeps its 2H x 4N slice of Wf[u] (recurrent rows, then feed rows)
-//     in shared memory in the storage type for all K steps: 64 KB fp32 at
-//     H = 256, N = 8. The wrapper hands the kernel Wf in wavefront_fwd.cu's
-//     layout, which the kernel reads its slice out of.
-//   - h_seq itself is the exchange buffer: step k reads the h of units u
-//     and u-1 that step k-1 stored in h_seq[k-1] (h0 at k = 0) through L2,
-//     in chunks of RB = 16 batch rows staged in shared memory in the
-//     storage type by 16-byte cp.async copies (all of a chunk's in flight
-//     at once; cp.async.cg reads L2, never a stale L1 line).
-//     Each warp takes an interleaved slice of the depth (four rows of the
-//     weight slice per 16-byte read of h), every lane one to four gate
-//     columns for all RB rows; the 8 slices' partial sums meet in shared
-//     memory, and the cell phase adds xs and b and runs the cell for the
-//     chunk's RB x N cells. The carried c lives in c_fin (each cell read and
-//     written by the same thread every step).
-//   - One grid-wide barrier per step (a counter in global memory, release
-//     fence before the arrival, acquire load in the wait): step k's h is in
-//     h_seq before any CTA reads it for step k+1.
-// What bounds it on the card: 2 * H * 4H fp32 FMAs per non-zero block, per
-// row, per step a unit runs: 25.2 GFLOP at B = 32, S = 300, H = 256 with 5
-// blocks (3 units), 0.376 ms at 67 TFLOP/s. This first design makes every
-// CTA reread h of two units from L2 per step and waits at a grid barrier
-// per step; making it fast is later work.
+// cluster. Here the units' columns are spread over the card: one
+// cooperative launch of U * H / N CTAs, CTA (u, j) owning state columns
+// t0 = j N .. t0 + N - 1 of unit u and their four gate columns, its
+// 2H x 4N slice of Wf[u] resident in shared memory for all K steps as mma
+// fragments (kernels/wavefront.py::_grid_plan picks N, the cluster size
+// and the ring from the card's residency).
+//
+// What bounds it on the card: not the 2 * H * 4H FMAs per non-zero block,
+// per row, per step a unit runs (0.376 ms at B = 32, S = 300, H = 256, 3
+// units, at 67 TFLOP/s), but the step's latency: step k of unit u needs
+// h[k-1] of units u and u-1 from other CTAs, so every step pays one
+// cross-CTA hand-off and one copy through L2 before its product. The
+// design keeps that chain short (wavefront_grid.cuh has the machinery):
+//   - No grid barrier: a CTA publishes its h_seq[k] columns on its unit's
+//     step flag (release), and the producer warp waits, with acquire loads,
+//     only on the flags of units u and u-1.
+//   - The rows come in two stages (unit u, then unit u-1), each fetched
+//     once per cluster of CTAs of unit u: every CTA bulk-copies 1/CS of the
+//     rows from L2, multicast into all the cluster's shared memory, so the
+//     product of stage 0 starts while stage 1 is in flight.
+//   - xs[k] and b are not on the step's path: the producer copies a step's
+//     xs slice a step ahead, b once; the carried h and c stay in shared
+//     memory (h_fin and c_fin are written once, at the last step).
+//   - The product runs on the tensor cores (mma.sync m16n8k8 3xTF32 for
+//     fp32 storage, m16n8k16 bf16 for bf16), the weight fragments read as
+//     16-byte words; warps split the gate columns' m-tiles and, where there
+//     are fewer than 8, the depth.
 //
 // Plain C interface: each entry point launches on the given stream and
 // returns the CUDA error of the launch (0 on success).
@@ -56,217 +54,314 @@
 
 namespace {
 
-constexpr int RB = 16;  // batch rows a chunk
+template <typename T>
+struct FwdParams {
+  const T* wf;  // [U][2H/4][4][H][4], wavefront_fwd.cu's layout
+  const T* b;
+  const T* xs;
+  const T* h0;
+  const T* c0;
+  const int* lvec;
+  T* h_seq;
+  T* gates_seq;
+  T* c_seq;
+  T* h_fin;
+  T* c_fin;
+  unsigned* flags;
+  int K, B, U, H, S, N, CS, MB, NBUF;
+};
 
-size_t smem_bytes(int N, int H, size_t item) {
-  return (size_t)2 * H * 4 * N * item                 // weight slice [2H][4N]
-         + (size_t)RB * (2 * H + 16 / item) * item     // h rows of a chunk
-         + (size_t)WARPS * RB * 4 * N * 4;             // partial gates
+// Wf[u] at depth dd (own rows 0..H-1, feed rows H..2H-1), gate column
+// q H + t, as raw storage bits
+template <typename T>
+__device__ __forceinline__ unsigned wf_bits(const FwdParams<T>& p, int u,
+                                            int dd, int q, int t) {
+  const size_t i =
+      ((((size_t)u * (p.H / 2) + dd / 4) * 4 + dd % 4) * p.H + t) * 4 + q;
+  if (sizeof(T) == 4) return reinterpret_cast<const unsigned*>(p.wf)[i];
+  return reinterpret_cast<const unsigned short*>(p.wf)[i];
 }
 
-template <typename T, int N, bool RESIDUALS>
+// NT: n8 tiles of batch rows a pass, 1-4
+template <typename T, bool RESIDUALS, int NT>
 __global__ void __launch_bounds__(THREADS, 1)
-    wavefront_grid_fwd_kernel(const T* __restrict__ wf,
-                              const T* __restrict__ b,
-                              const T* __restrict__ xs,
-                              const T* __restrict__ h0,
-                              const T* __restrict__ c0,
-                              const int* __restrict__ lvec, T* h_seq,
-                              T* __restrict__ gates_seq,
-                              T* __restrict__ c_seq, T* __restrict__ h_fin,
-                              T* c_fin, unsigned* bar, int K, int B, int U,
-                              int H, int S) {
-  constexpr int C = 4 * N;    // gate columns of this CTA: q * N + c
-  constexpr int CL = C / 32;  // of them, per lane
-  const int u = blockIdx.x / (H / N);
-  const int t0 = (blockIdx.x % (H / N)) * N;
+    wavefront_grid_fwd_kernel(const FwdParams<T> p) {
+  constexpr bool TF32 = sizeof(T) == 4;
+  constexpr int SETS = sets_for(NT);
+  const int K = p.K, B = p.B, H = p.H, N = p.N, CS = p.CS, MB = p.MB;
+  const int NBUF = p.NBUF, UH = p.U * H, G = 4 * UH, per_unit = H / N;
+  const int u = blockIdx.x / per_unit, t0 = (blockIdx.x % per_unit) * N;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int UH = U * H, G = 4 * UH;
-  const int layer = lvec[u];
-  const int D = layer > 0 ? 2 * H : H;  // depth: own h, then unit u-1's
-  constexpr int V = 16 / sizeof(T);     // storage values a 16-byte copy
-  const int HS = 2 * H + V;             // h row stride in shared memory
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int layer = p.lvec[u];
+  const int nstage = layer > 0 ? 2 : 1;  // unit u, then unit u-1
+  const Layout L = grid_layout<T, true>(H, N, MB, NBUF);
+  const int KTT = L.stages * L.kts;
+  const int E = (B + MB - 1) / MB * K;  // steps of all passes
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* w_s = reinterpret_cast<T*>(smem);  // [2H][C]
-  T* h_s = w_s + (size_t)2 * H * C;     // [RB][HS]
-  float* part = reinterpret_cast<float*>(h_s + RB * HS);  // [WARPS][RB][C]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const unsigned bars = smem_addr(smem);
+  unsigned* w_s = reinterpret_cast<unsigned*>(smem + L.w);
+  const T* buf_s = reinterpret_cast<const T*>(smem + L.buf);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  T* in_s = reinterpret_cast<T*>(smem + L.in);
+  float* b_s = reinterpret_cast<float*>(smem + L.bias);
+  float* h_c = reinterpret_cast<float*>(smem + L.carry);  // [MB][N]
+  float* c_c = h_c + MB * N;
 
-  // the slice of Wf[u], out of wavefront_fwd.cu's layout [U][2H/4][4][H][4]
-  for (int i = tid; i < D * C; i += THREADS) {
-    const int d = i / C, cc = i % C, q = cc / N, c = cc % N;
-    w_s[i] = wf[((((size_t)u * (H / 2) + d / 4) * 4 + d % 4) * H + t0 + c) * 4 +
-                q];
+  grid_init_barriers(bars, NBUF, CS);
+  for (int i = tid; i < (int)(NBUF * L.rows * L.rs * sizeof(T) / 16);
+       i += THREADS)
+    reinterpret_cast<uint4*>(smem + L.buf)[i] = make_uint4(0, 0, 0, 0);
+  // A fragments of the weight slice: [mt][KTT][lane][4], register r of
+  // lane (g, t) holding A[m][d] at m = 16 mt + g (+8 for r odd), d = kw j +
+  // (t, or 2t and 2t+1 for bf16) (+kw/2 for r >= 2); A[q N + c][s H + d] =
+  // Wf[u][s H + d][q H + t0 + c], zero past H and for a missing stage
+  for (int i = tid; i < L.mt * KTT * 128; i += THREADS) {
+    const int r = i & 3, ln = (i >> 2) & 31, f = i >> 7;
+    const int kt = f % KTT, mtile = f / KTT, s = kt / L.kts;
+    const int m = mtile * 16 + ln / 4 + (r & 1) * 8, q = m / N, c = m % N;
+    int d = (kt % L.kts) * L.kw + (r >> 1) * (L.kw / 2);
+    unsigned v = 0;
+    if (TF32) {
+      d += ln % 4;
+      if (d < H && s < nstage) v = wf_bits(p, u, s * H + d, q, t0 + c);
+    } else {
+      d += 2 * (ln % 4);
+      if (d < H && s < nstage)
+        v = wf_bits(p, u, s * H + d, q, t0 + c) |
+            wf_bits(p, u, s * H + d + 1, q, t0 + c) << 16;
+    }
+    w_s[i] = v;
   }
-  __syncthreads();
+  for (int i = tid; i < 4 * N; i += THREADS)
+    b_s[i] = load_f32(p.b + (i / N) * UH + u * H + t0 + i % N);
+  grid_start(CS);
 
-  for (int k = 0; k < K; ++k) {
-    const bool valid = layer <= k && k < S + layer;
-    const T* h_prev = k ? h_seq + (size_t)(k - 1) * B * UH : h0;
-    const T* c_prev = k ? c_fin : c0;
-    const T* xk = xs + (size_t)k * B * G;
-    for (int r0 = 0; r0 < B; r0 += RB) {
-      // the chunk's h rows, V values a copy; rows past the batch are zeros
-      for (int i = tid; i < RB * (D / V); i += THREADS) {
-        const int m = i / (D / V), d = (i % (D / V)) * V, row = r0 + m;
-        T* dst = h_s + m * HS + d;
-        if (row < B)
-          cp_async16(dst, h_prev + (size_t)row * UH +
-                              (d < H ? u * H + d : (u - 1) * H + d - H));
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  const bool ring = NBUF < nstage;  // else stage s keeps buffer s
+
+  if (warp == WARPS) {
+    // ---- producer: the stages of every step, the inputs a step ahead ----
+    const unsigned rank = CS > 1 ? cluster_rank() : 0;
+    const unsigned short mask = (unsigned short)((1u << CS) - 1);
+    const unsigned seg = H * sizeof(T);
+    const unsigned ring_s = smem_addr(smem + L.buf);
+    const unsigned* own = p.flags + u * FLAG_STRIDE;
+    // xs[k] of step e: per row 4 gate segments of N values, lane l taking
+    // segment l % 4 of rows l / 4, l / 4 + 8, ..., 16 bytes a copy
+    const int V = 16 / sizeof(T), q_in = lane % 4;
+    auto inputs = [&](int e) {
+      const int j = e & 1, k = e % K, r0 = e / K * MB, rows = min(MB, B - r0);
+      for (int m = lane / 4; m < rows; m += 8) {
+        T* dst = in_s + ((size_t)(j * MB + m) * 4 + q_in) * N;
+        const T* src =
+            p.xs + ((size_t)k * B + r0 + m) * G + q_in * UH + u * H + t0;
+        for (int v = 0; v < N; v += V) cp_async16(dst + v, src + v);
       }
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      // product: depth slice `warp` of [h_u | h_{u-1}] @ the weight slice
-      float acc[RB][CL];
-#pragma unroll
-      for (int m = 0; m < RB; ++m)
-#pragma unroll
-        for (int j = 0; j < CL; ++j) acc[m][j] = 0.f;
-      for (int d4 = warp; d4 < D / 4; d4 += WARPS) {
-        float w[4][CL];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int j = 0; j < CL; ++j)
-            w[e][j] = load_f32(w_s + (4 * d4 + e) * C + lane + 32 * j);
-#pragma unroll
-        for (int m = 0; m < RB; ++m) {
-          const float4 hv = load4(h_s + m * HS + 4 * d4);
-#pragma unroll
-          for (int j = 0; j < CL; ++j)
-            acc[m][j] = fmaf(hv.w, w[3][j],
-                             fmaf(hv.z, w[2][j],
-                                  fmaf(hv.y, w[1][j],
-                                       fmaf(hv.x, w[0][j], acc[m][j]))));
+      cp_async_arrive(in_bar(bars, j));
+    };
+    int g = 0;
+    inputs(0);
+    for (int e = 0; e < E; ++e) {
+      const int kk = e % K, r0 = e / K * MB, rows = min(MB, B - r0);
+      const T* src = kk ? p.h_seq + (size_t)(kk - 1) * B * UH : p.h0;
+      // a new pass reads h0, but refills buffers the last pass read
+      if (kk == 0 && e > 0) wait_flag(own, e * per_unit, lane);
+      for (int s = 0; s < nstage; ++s, ++g) {
+        // h_seq[kk-1] of unit u - s is complete
+        if (kk > 0)
+          wait_flag(p.flags + (u - s) * FLAG_STRIDE, e * per_unit, lane);
+        const Slot sl = stage_slot(ring, NBUF, g, s, e);
+        if (ring && sl.use > 0)
+          mbar_wait(empty_bar(bars, sl.buf), (sl.use - 1) & 1);
+        if (lane == 0) mbar_expect(full_bar(bars, sl.buf), rows * seg);
+        __syncwarp();
+        const unsigned dst = ring_s + sl.buf * L.rows * L.rs * sizeof(T);
+        for (int r = rank + CS * lane; r < rows; r += 32 * CS) {
+          const T* row = src + (size_t)(r0 + r) * UH + (u - s) * H;
+          if (CS > 1)
+            bulk_copy_mc(dst + r * L.rs * sizeof(T), row, seg,
+                         full_bar(bars, sl.buf), mask);
+          else
+            bulk_copy(dst + r * L.rs * sizeof(T), row, seg,
+                      full_bar(bars, sl.buf));
         }
       }
+      // step e+1's inputs take the buffer of step e-1, which this CTA is
+      // done with: its unit's flag counted step e-1 above
+      if (e + 1 < E) inputs(e + 1);
+    }
+  } else {
+    // ---- consumers: the product, then the cells ----
+    const int mtile = warp % L.mt, slice = warp / L.mt;
+    int g = 0;
+    for (int e = 0; e < E; ++e) {
+      const int kk = e % K, r0 = e / K * MB, rows = min(MB, B - r0);
+      const bool valid = layer <= kk && kk < p.S + layer;
+      float acc[SETS][NT][3][4];
+      zero_acc(acc);
+      for (int s = 0; s < nstage; ++s, ++g) {
+        const Slot sl = stage_slot(ring, NBUF, g, s, e);
+        mbar_wait(full_bar(bars, sl.buf), sl.use & 1);
+        const T* stg = buf_s + (size_t)sl.buf * L.rows * L.rs;
+        // A: the weight fragment; B: h of batch rows 8n + g at depth kw j
+        // + t (+4), or the bf16 pairs at 2t (+8): 32-bit words t, t + 4
+        const uint4* wf4 = reinterpret_cast<const uint4*>(w_s) +
+                           (mtile * KTT + s * L.kts) * 32 + lane;
+        stage_product<T, NT, SETS>(
+            acc, slice, L.kts, L.ks,
+            [&](int j, unsigned (&a)[4]) {
+              const uint4 wv = wf4[j * 32];
+              a[0] = wv.x;
+              a[1] = wv.y;
+              a[2] = wv.z;
+              a[3] = wv.w;
+            },
+            [&](int j, int n, unsigned (&b)[2]) {
+              const unsigned* hw = reinterpret_cast<const unsigned*>(
+                  stg + (size_t)(n * 8 + g8) * L.rs + j * L.kw);
+              b[0] = hw[t4];
+              b[1] = hw[t4 + 4];
+            });
+        if (ring) release_stage(empty_bar(bars, sl.buf), CS, warp, lane);
+      }
+      // this slice's sums: D[m][n] at m = 16 mtile + g (+8), n = 8 nt + 2t
+      // (+1) -> part[slice][n][m]
 #pragma unroll
-      for (int m = 0; m < RB; ++m)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int j = 0; j < CL; ++j)
-          part[(warp * RB + m) * C + lane + 32 * j] = acc[m][j];
-      __syncthreads();
-      // cell phase: the chunk's RB x N cells
-      for (int cell = tid; cell < RB * N; cell += THREADS) {
+        for (int i = 0; i < 4; ++i) {
+          const int m = mtile * 16 + g8 + (i / 2) * 8;
+          const int row = n * 8 + 2 * t4 + i % 2;
+          part[((size_t)slice * L.rows + row) * L.ps + m] =
+              acc_sum(acc, n, i, TF32);
+        }
+      consumers_sync();
+      // cells: the pass's rows x N; the carried h, c stay in shared memory
+      mbar_wait(in_bar(bars, e & 1), (e >> 1) & 1);
+      const T* xin = in_s + (size_t)(e & 1) * MB * 4 * N;
+      for (int cell = tid; cell < rows * N; cell += CONSUMERS) {
         const int m = cell / N, c = cell % N, row = r0 + m;
-        if (row >= B) continue;
         const int col = u * H + t0 + c;
-        float g[4];
+        float gq[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float* p = part + m * C + q * N + c;
-          float dot = p[0];
-#pragma unroll
-          for (int s = 1; s < WARPS; ++s) dot = __fadd_rn(dot, p[s * RB * C]);
-          g[q] = __fadd_rn(
-              __fadd_rn(dot, load_f32(xk + (size_t)row * G + q * UH + col)),
-              load_f32(b + q * UH + col));
+          const float* pp = part + (size_t)m * L.ps + q * N + c;
+          float dot = pp[0];
+          for (int s = 1; s < L.ks; ++s)
+            dot = __fadd_rn(dot, pp[(size_t)s * L.rows * L.ps]);
+          gq[q] = __fadd_rn(__fadd_rn(dot, load_f32(xin + (m * 4 + q) * N + c)),
+                            b_s[q * N + c]);
         }
-        float hv = load_f32(h_s + m * HS + t0 + c);  // carried when idle
-        float cv = load_cg(c_prev + (size_t)row * UH + col);
+        float hv, cv;
+        if (kk == 0) {
+          hv = load_f32(p.h0 + (size_t)row * UH + col);
+          cv = load_f32(p.c0 + (size_t)row * UH + col);
+        } else {
+          hv = h_c[cell];
+          cv = c_c[cell];
+        }
         if (valid) {
-          const float ig = sigmoid(g[0]), fg = sigmoid(g[1]);
-          const float gt = tanhf(g[2]), og = sigmoid(g[3]);
+          const float ig = sigmoid(gq[0]), fg = sigmoid(gq[1]);
+          const float gt = tanhf(gq[2]), og = sigmoid(gq[3]);
           const float c_new = __fadd_rn(__fmul_rn(fg, cv), __fmul_rn(ig, gt));
           const float h_new = __fmul_rn(og, tanhf(c_new));
-          hv = round_to(h_new, h0);
-          cv = round_to(c_new, h0);
+          hv = round_to(h_new, p.h0);
+          cv = round_to(c_new, p.h0);
         }
-        const size_t off = ((size_t)k * B + row) * UH + col;
-        store(h_seq + off, hv);
-        store(c_fin + (size_t)row * UH + col, cv);
+        h_c[cell] = hv;
+        c_c[cell] = cv;
+        const size_t off = ((size_t)kk * B + row) * UH + col;
+        store(p.h_seq + off, hv);
         if (RESIDUALS) {
-          store(c_seq + off, cv);
-          T* gp = gates_seq + ((size_t)k * B + row) * G + col;
+          store(p.c_seq + off, cv);
+          T* gp = p.gates_seq + ((size_t)kk * B + row) * G + col;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) store(gp + q * UH, g[q]);
+          for (int q = 0; q < 4; ++q) store(gp + q * UH, gq[q]);
         }
-        if (k == K - 1) store(h_fin + (size_t)row * UH + col, hv);
+        if (kk == K - 1) {
+          store(p.h_fin + (size_t)row * UH + col, hv);
+          store(p.c_fin + (size_t)row * UH + col, cv);
+        }
       }
-      __syncthreads();  // h_s and part are refilled by the next chunk
+      consumers_sync();  // every h_seq[kk] store of this CTA is issued
+      if (tid == 0) publish_step(p.flags + u * FLAG_STRIDE);
     }
-    if (k + 1 < K) grid_barrier(bar, k + 1);  // h_seq[k] complete
   }
+  grid_end(CS);
 }
 
-#define GRID_FWD_CASE(n) \
-  case n:                \
-    return (const void*)wavefront_grid_fwd_kernel<T, n, RESIDUALS>;
-
-// the kernel for N state columns a CTA, N in {8, 16, 32}
+// the kernel for `nt` n8 tiles of batch rows a pass
 template <typename T, bool RESIDUALS>
-const void* kernel_for(int N) {
-  switch (N) { GRID_FWD_CASE(8) GRID_FWD_CASE(16) GRID_FWD_CASE(32) }
+const void* kernel_for(int nt) {
+  switch (nt) {
+    case 1: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 1>;
+    case 2: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 2>;
+    case 3: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 3>;
+    case 4: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 4>;
+  }
   return nullptr;
 }
 
 template <typename T, bool RESIDUALS>
 int launch(const void* w, const void* b, const void* xs, const void* h0,
            const void* c0, const void* lvec, void* h_seq, void* gates_seq,
-           void* c_seq, void* h_fin, void* c_fin, void* bar, int K, int B,
-           int U, int H, int S, int N, int smem, void* stream) {
-  const void* kernel = kernel_for<T, RESIDUALS>(N);
-  if (kernel == nullptr || H % N || H % 8 ||
-      (size_t)smem != smem_bytes(N, H, sizeof(T)))
+           void* c_seq, void* h_fin, void* c_fin, void* flags, int K, int B,
+           int U, int H, int S, int N, int CS, int MB, int NBUF, int smem,
+           void* stream) {
+  const Layout L = grid_layout<T, true>(H, N, MB, NBUF);
+  if (!grid_args_ok(H, N, CS, MB, NBUF, smem, L.total) || NBUF > 2)
     return (int)cudaErrorInvalidValue;
-  void* args[] = {&w,     &b,     &xs,   &h0,  &c0, &lvec, &h_seq,
-                  &gates_seq, &c_seq, &h_fin, &c_fin, &bar, &K, &B,
-                  &U,     &H,     &S};
-  return launch_grid(kernel, U * H / N, smem, args, stream);
+  FwdParams<T> p = {(const T*)w,      (const T*)b,     (const T*)xs,
+                    (const T*)h0,     (const T*)c0,    (const int*)lvec,
+                    (T*)h_seq,        (T*)gates_seq,   (T*)c_seq,
+                    (T*)h_fin,        (T*)c_fin,       (unsigned*)flags,
+                    K, B, U, H, S, N, CS, MB, NBUF};
+  return grid_launch(kernel_for<T, RESIDUALS>(L.nt), &p, U * H / N, CS, smem,
+                     stream);
 }
 
 }  // namespace
 
-extern "C" int wavefront_grid_fwd_f32(const void* w, const void* b,
-                                      const void* xs, const void* h0,
-                                      const void* c0, const void* lvec,
-                                      void* h_seq, void* h_fin, void* c_fin,
-                                      void* bar, int K, int B, int U, int H,
-                                      int S, int N, int smem, void* stream) {
+#define GRID_FWD_ARGS                                                        \
+  const void *w, const void *b, const void *xs, const void *h0,             \
+      const void *c0, const void *lvec, void *h_seq
+#define GRID_FWD_INTS                                                        \
+  void *h_fin, void *c_fin, void *flags, int K, int B, int U, int H, int S, \
+      int N, int CS, int MB, int NBUF, int smem, void *stream
+
+extern "C" int wavefront_grid_fwd_f32(GRID_FWD_ARGS, GRID_FWD_INTS) {
   return launch<float, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr, nullptr,
-                              h_fin, c_fin, bar, K, B, U, H, S, N, smem,
-                              stream);
+                              h_fin, c_fin, flags, K, B, U, H, S, N, CS, MB,
+                              NBUF, smem, stream);
 }
 
-extern "C" int wavefront_grid_fwd_bf16(const void* w, const void* b,
-                                       const void* xs, const void* h0,
-                                       const void* c0, const void* lvec,
-                                       void* h_seq, void* h_fin, void* c_fin,
-                                       void* bar, int K, int B, int U, int H,
-                                       int S, int N, int smem, void* stream) {
+extern "C" int wavefront_grid_fwd_bf16(GRID_FWD_ARGS, GRID_FWD_INTS) {
   return launch<__nv_bfloat16, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr,
-                                      nullptr, h_fin, c_fin, bar, K, B, U, H,
-                                      S, N, smem, stream);
+                                      nullptr, h_fin, c_fin, flags, K, B, U,
+                                      H, S, N, CS, MB, NBUF, smem, stream);
 }
 
-extern "C" int wavefront_grid_fwd_res_f32(
-    const void* w, const void* b, const void* xs, const void* h0,
-    const void* c0, const void* lvec, void* h_seq, void* gates_seq,
-    void* c_seq, void* h_fin, void* c_fin, void* bar, int K, int B, int U,
-    int H, int S, int N, int smem, void* stream) {
+extern "C" int wavefront_grid_fwd_res_f32(GRID_FWD_ARGS, void* gates_seq,
+                                          void* c_seq, GRID_FWD_INTS) {
   return launch<float, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq, c_seq,
-                             h_fin, c_fin, bar, K, B, U, H, S, N, smem,
-                             stream);
+                             h_fin, c_fin, flags, K, B, U, H, S, N, CS, MB,
+                             NBUF, smem, stream);
 }
 
-extern "C" int wavefront_grid_fwd_res_bf16(
-    const void* w, const void* b, const void* xs, const void* h0,
-    const void* c0, const void* lvec, void* h_seq, void* gates_seq,
-    void* c_seq, void* h_fin, void* c_fin, void* bar, int K, int B, int U,
-    int H, int S, int N, int smem, void* stream) {
+extern "C" int wavefront_grid_fwd_res_bf16(GRID_FWD_ARGS, void* gates_seq,
+                                           void* c_seq, GRID_FWD_INTS) {
   return launch<__nv_bfloat16, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq,
-                                     c_seq, h_fin, c_fin, bar, K, B, U, H, S,
-                                     N, smem, stream);
+                                     c_seq, h_fin, c_fin, flags, K, B, U, H,
+                                     S, N, CS, MB, NBUF, smem, stream);
 }
 
-// How many CTAs of the residual forward for N columns the card holds at
-// once, or minus the CUDA error. The serving variant has the same shape
-// and shared memory.
-extern "C" int wavefront_grid_fwd_max_ctas(int bf16, int N, int smem) {
-  return max_ctas(bf16 ? kernel_for<__nv_bfloat16, true>(N)
-                       : kernel_for<float, true>(N),
-                  smem);
+// How many CTAs of the residual forward (four n8 tiles) the card holds at
+// once in clusters of CS with `smem` bytes of shared memory, or minus the
+// CUDA error. The serving variant and the narrower ones have the same
+// shared memory and no more registers.
+extern "C" int wavefront_grid_fwd_max_ctas(int bf16, int CS, int smem) {
+  return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, true>(4)
+                            : kernel_for<float, true>(4),
+                       smem, CS);
 }

@@ -13,7 +13,7 @@ gradcheck.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -32,7 +32,10 @@ def _valid_cols(lvec: torch.Tensor, H: int, k: int, S: int) -> torch.Tensor:
 def wavefront_fwd_plain(W_eff: torch.Tensor, b_packed: torch.Tensor,
                         xs_wave: torch.Tensor, h0: torch.Tensor,
                         c0: torch.Tensor, lvec: torch.Tensor, S: int,
-                        with_residuals: bool = False) -> Tuple[torch.Tensor, ...]:
+                        with_residuals: bool = False,
+                        product: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                                   torch.Tensor]] = None
+                        ) -> Tuple[torch.Tensor, ...]:
     """K = S + D - 1 wavefront steps over U packed LSTM units.
 
     W_eff (UH, 4UH), b_packed (4UH,), xs_wave (K, B, 4UH), h0/c0 (B, UH),
@@ -42,7 +45,8 @@ def wavefront_fwd_plain(W_eff: torch.Tensor, b_packed: torch.Tensor,
     h_fin and c_fin (B, UH), all in xs_wave's dtype; with_residuals also
     gates_seq (K, B, 4UH), the pre-activation gates (xs and b included), and
     c_seq (K, B, UH), the carried c after each step, which the backward
-    reads.
+    reads. `product(h, W)` stands in for the step's product h @ W (both in
+    the compute dtype), for emulating another summation.
     """
     K, B, G = xs_wave.shape
     UH = G // 4
@@ -57,7 +61,8 @@ def wavefront_fwd_plain(W_eff: torch.Tensor, b_packed: torch.Tensor,
     if with_residuals:
         gates_seq, c_seq = new(K, B, G), new(K, B, UH)
     for k in range(K):
-        gates = h.to(acc) @ w + xs_wave[k].to(acc) + b
+        hw = h.to(acc) @ w if product is None else product(h.to(acc), w)
+        gates = hw + xs_wave[k].to(acc) + b
         i, f, g, o = gates.chunk(4, dim=-1)
         i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
         c_new = f * c.to(acc) + i * torch.tanh(g)
@@ -77,7 +82,9 @@ def wavefront_fwd_plain(W_eff: torch.Tensor, b_packed: torch.Tensor,
 def wavefront_bwd_plain(W_eff: torch.Tensor, gates_seq: torch.Tensor,
                         c_seq: torch.Tensor, c_prev_seq: torch.Tensor,
                         dY: torch.Tensor, dh0: torch.Tensor, dc0: torch.Tensor,
-                        lvec: torch.Tensor, S: int
+                        lvec: torch.Tensor, S: int,
+                        product: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                                   torch.Tensor]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reverse wavefront, k = K-1 ... 0.
 
@@ -89,7 +96,8 @@ def wavefront_bwd_plain(W_eff: torch.Tensor, gates_seq: torch.Tensor,
     carry dh_tot and dc through), and dz = dgates @ W_eff^T delivers the
     recurrent and the inter-layer cotangents in one product. Returns
     dgates_seq (K, B, 4UH), dh_fin and dc_fin (B, UH), the cotangents of
-    xs_wave, h0 and c0, in gates_seq's dtype.
+    xs_wave, h0 and c0, in gates_seq's dtype. `product(dgates, W^T)`
+    stands in for the step's product dgates @ W^T, as in the forward.
     """
     K, B, G = gates_seq.shape
     UH = G // 4
@@ -116,7 +124,8 @@ def wavefront_bwd_plain(W_eff: torch.Tensor, gates_seq: torch.Tensor,
         valid = _valid_cols(lvec, H, k, S)
         dgates = torch.where(valid.repeat(4), dgates, 0.0).to(dtype)
         dgates_seq[k] = dgates
-        dz = dgates.to(acc) @ wt
+        dz = (dgates.to(acc) @ wt if product is None
+              else product(dgates.to(acc), wt))
         dh = (dz + torch.where(valid, 0.0, dh_tot)).to(dtype)
         dc = torch.where(valid, dct * f, dc_c).to(dtype)
     return dgates_seq, dh, dc
