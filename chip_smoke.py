@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, training step, training entry
-point, exact frontend, dataset ETL, evaluation, streaming, and the
-forecast, predict-st and classifier families on an NVIDIA GPU.
+point, exact frontend, dataset ETL, evaluation, streaming, the forecast,
+predict-st and classifier families, and data- and tensor-parallel
+training on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
     python3 chip_smoke.py --serve     # phases 1, 2 and 4, printing no result
     python3 chip_smoke.py --grid      # phases 1, 2 and 12 (a), printing no result
+    python3 chip_smoke.py --parallel  # phases 1, 2 and 13, printing no result
 
 Run with --kernels, --serve or --grid from a copy placed at the root of
 another checkout, it times that checkout's kernels or serving path (the
@@ -61,7 +63,9 @@ Phases, each of which raises on failure (exit code 1):
      a falling B=32 loss, one residual-forward and one backward launch per
      step; then, from the seeded weights, one B=8 step against the plain
      recurrence on the card and one B=2 step against the CPU on identical
-     coefficients and noise;
+     coefficients and noise (the gradient's worst leaf within
+     FP32_NUDGE_RATIO times the CPU's own move when the coefficients move
+     by half an fp32 ulp);
   6. the bf16 compute policy's forward: full-width SeqVaeTeb(dtype=bf16)
      on the same seeded weights against the fp32 model on the card (B=32,
      eval mode, every output within 0.1 of its max) and against the CPU's
@@ -147,11 +151,31 @@ Phases, each of which raises on failure (exit code 1):
      weights moving by optax's decay alone), predict, one joint step
      (freeze_vae=False, vae_loss_weight 0.1: one residual forward and one
      reverse launch), step times;
- 13. print the card's nvidia-smi name and power limit, one JSON line for
+ 13. data- and tensor-parallel training of the full-width fp32 model from
+     the seeded weights (TF32 off) at a global B=64 on seeded windows
+     through the production frontend, ranks spawned by
+     torch.multiprocessing that load the kernels this process built: the
+     plain step 1 and its move under half-ulp nudges of the coefficients
+     first (the bars' scale); (a) two ranks sharing cuda:0 over gloo, data
+     parallel, 3 steps, each rank launching wavefront_fwd_res_f32 and
+     wavefront_bwd_f32 once a step at B=32, every step held to the plain
+     Trainer from the run's full state before it (losses and statistics
+     1e-4; gradients, grad_norm and parameters FP32_NUDGE_RATIO times the
+     nudge's move); (b) a one-rank NCCL world through the data-parallel
+     path against the plain Trainer: the forward bit for bit, the rest no
+     further apart than two plain runs, both step times; (c) two ranks as
+     1 data x 2 model, the four head kernels sharded, 2 steps checked as
+     (a), each rank's parameter and Adam moment bytes; (d) `cli train
+     --multihost` as a one-rank torchrun world on NCCL for one epoch on a
+     packed store; a checkpoint must exist. Step times of two ranks on one
+     card are no measure of multi-card speed. A rank that fails or passes
+     PARALLEL_TIMEOUT_S fails the phase;
+ 14. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start, the serving forward's launches
      in phase 10, in phase 11 the sessions' and the loaded programs', and
-     phase 12's model runs'; the grid kernels' rows at (3, 256), B=32,
+     phase 12's model runs', and phase 13's per world and rank
+     (`parallel_launches`); the grid kernels' rows at (3, 256), B=32,
      fp32, with their errors, times, cuDNN times and bounds at every
      phase-12 shape and storage type, `by_shape`), and last {"ok": true,
      "device": {...}}.
@@ -190,8 +214,19 @@ SERVE_REL_TOL = 1e-4  # kernel vs plain recurrence in the full model
 GRAD_REL_TOL = 1e-4   # runs that share a bit-identical forward
 # Runs whose forwards differ by rounding: a ReLU input within rounding of 0
 # falls on either side, which moves a gradient by one position's term.
-KINK_REL_TOL = 1e-1   # worst leaf
+KINK_REL_TOL = 1e-1   # worst leaf, where no sensitivity run sets the bar
 KINK_L2_TOL = 2e-2    # model-wide
+# fp32 runs whose forwards differ by rounding (phase 5's card against the
+# CPU, phase 13's meshes against one process): the gradient's worst leaf
+# (and in phase 13 its rel-L2 and the updated parameters) within this many
+# times the reference's own move when its coefficients move by half an
+# fp32 ulp (the larger of NUDGE_DRAWS draws). The nudge perturbs the input
+# once; the compared runs round differently in every layer (summation
+# orders, the mesh's BatchNorm reduction): measured ratios 0.46-1.6
+# (PERF.md, PR 10); a fault (a wrong row, a missing average) moves these
+# by O(1).
+FP32_NUDGE_RATIO = 3.0
+NUDGE_DRAWS = 2
 METRIC_REL_TOL = 1e-4  # card vs CPU losses and running statistics
 PARAM_FRAC_TOL = 1e-3  # card vs CPU: share of weights more than lr/100 apart
 PARAM_L2_TOL = 1e-1   # card vs CPU: rel-L2 of the parameter difference
@@ -642,8 +677,10 @@ def check_single_stream(device, H=64):
     the streaming source encode launches it, at every (B, S) of
     STREAM_KERNEL_CASES in fp32 and bf16 storage: kernel against plain at
     phase 3's bars, CUDA-event times, the bound (4 recurrent and 3 feed
-    blocks) and, in fp32, cuDNN's 4-layer LSTM from the same state; the
-    launch plan of each batch. Then the host time of one call of the
+    blocks) and cuDNN's 4-layer LSTM from the same state (held at
+    LIBRARY_REL_TOL; in bf16 storage its time is no yardstick: PyTorch
+    re-packs the bf16 LSTM's weights on every call); the launch plan of
+    each batch. Then the host time of one call of the
     operator against a direct launch (B=1, K=4). Returns {(B, S, dtype):
     (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}."""
     from vae_teb_tpu_torch.kernels import wavefront_fwd, wavefront_fwd_plain
@@ -676,13 +713,12 @@ def check_single_stream(device, H=64):
             plain_ms = cuda_time_ms(lambda: wavefront_fwd_plain(*args, S),
                                     PLAIN_RUNS)
             bnd = bound("fwd", b, K, S, 4, H, 3, args[2].element_size())
-            lib_ms = lib_err = None
-            if dtype == torch.float32:
-                streams = cudnn_streams(args, depths, S)
-                lib_err = cudnn_check(streams, depths, *got, S)
-                if not lib_err <= LIBRARY_REL_TOL[dtype]:
-                    failed.append(f"cuDNN yardstick B={b} S={S}: {lib_err}")
-                lib_ms = cudnn_times(streams, gen)[0]
+            streams = cudnn_streams(args, depths, S)
+            lib_err = cudnn_check(streams, depths, *got, S)
+            if not lib_err <= LIBRARY_REL_TOL[dtype]:
+                failed.append(f"cuDNN yardstick B={b} S={S} {name}: "
+                              f"{lib_err}")
+            lib_ms = cudnn_times(streams, gen)[0]
             label = f"single stream (4,) B={b} S={S} K={K} {name}"
             log(f"serving forward {label}: max_abs_err={err!r} (tol {tol}, "
                 f"max|plain| {scale!r}) kernel {ms!r} ms, plain {plain_ms!r} "
@@ -989,15 +1025,29 @@ def train(device):
         check(f"kernels vs {name}: rel-L2", l2, l2_bar)
     del grads
 
-    # one B=2 step on identical coefficients and noise on the CPU
+    # one B=2 step on identical coefficients and noise on the CPU, and the
+    # CPU's step on coefficients nudged by half an fp32 ulp (NUDGE_DRAWS
+    # draws): the gradient's own sensitivity sets the leaf bar
     fhr, up, y_raw = batch_of(2)
-    batch = fields(frontend(fhr, up), y_raw)
+    coeffs = frontend(fhr, up)
+    batch = fields(coeffs, y_raw)
     eps = torch.randn((2,) + latent, generator=gen, device=device)
     gpu_model, cpu_model = copy.deepcopy(seeded), copy.deepcopy(seeded).cpu()
     before = [p.detach().clone() for p in cpu_model.parameters()]
     m_gpu = Trainer(gpu_model, cfg, device).train_step(batch, beta, eps=eps)
     m_cpu = Trainer(cpu_model, cfg, "cpu").train_step(
         {k: v.cpu() for k, v in batch.items()}, beta, eps=eps.cpu())
+    cpu_grads = {k: p.grad for k, p in cpu_model.named_parameters()}
+    nudges = []
+    for _ in range(NUDGE_DRAWS):
+        m = copy.deepcopy(seeded).cpu()
+        nudged = fields(nudge_bar(coeffs, gen), y_raw)
+        Trainer(m, cfg, "cpu").train_step(
+            {k: v.cpu() for k, v in nudged.items()}, beta, eps=eps.cpu())
+        nudges.append(grad_report({k: p.grad for k, p in
+                                   m.named_parameters()}, cpu_grads))
+        del m
+    nudge, nudge_leaf, nudge_l2 = max(nudges)
     rel = {k: abs(m_gpu[k].item() / m_cpu[k].item() - 1) for k in m_cpu}
     norm_err = rel.pop("grad_norm")   # a model-wide L2: moves with kinks
     loss_err = max(rel.values())
@@ -1005,8 +1055,9 @@ def train(device):
     check("card vs CPU grad_norm", norm_err, KINK_L2_TOL)
     worst, leaf, l2 = grad_report(
         {k: p.grad.cpu() for k, p in gpu_model.named_parameters()},
-        {k: p.grad for k, p in cpu_model.named_parameters()})
-    check(f"card vs CPU gradients: worst leaf {leaf}", worst, KINK_REL_TOL)
+        cpu_grads)
+    check(f"card vs CPU gradients: worst leaf {leaf}", worst,
+          FP32_NUDGE_RATIO * nudge)
     check("card vs CPU gradients: rel-L2", l2, KINK_L2_TOL)
     # updated parameters: Adam's first step moves each weight by about
     # lr * sign(g), so an element whose gradient is rounding noise, or
@@ -1029,7 +1080,11 @@ def train(device):
     log(f"train step card vs CPU (B=2, identical coefficients and noise): "
         f"losses rel {loss_err!r}, grad_norm rel {norm_err!r}; gradients "
         f"worst max-abs/max {worst!r} "
-        f"({leaf}), rel-L2 {l2!r}; updated parameters max-abs {p_err!r}, "
+        f"({leaf}), rel-L2 {l2!r}, against the CPU's own move on "
+        f"coefficients nudged by half an fp32 ulp: worst leaf {nudge!r} "
+        f"({nudge_leaf}), rel-L2 {nudge_l2!r} over {NUDGE_DRAWS} draws (leaf "
+        f"bar {FP32_NUDGE_RATIO} times it, {FP32_NUDGE_RATIO * nudge!r}); "
+        f"updated parameters max-abs {p_err!r}, "
         f"share more than lr/100 apart {p_frac!r} of {n}, rel-L2 of the "
         f"update {p_l2!r}; running statistics max-abs/max {s_err!r}")
     if failed:
@@ -2366,12 +2421,505 @@ def variants_phase(device):
     return main_path
 
 
+# Phase 13: data- and tensor-parallel training on the one card. Ranks are
+# processes (torch.multiprocessing, spawn) that share cuda:0 over gloo
+# ((a), (c)), or a one-rank NCCL world ((b), (d)). They load the kernels
+# the parent built from the same build directory.
+PARALLEL_BATCH = 64        # global batch of (a)-(c)
+PARALLEL_STEPS = 3         # steps of (a) and (b); (c) takes 2
+HYBRID_STEPS = 2
+PARALLEL_TIMEOUT_S = 480   # a spawned world's limit, its start included
+CLI_TIMEOUT_S = 300        # (d)'s torchrun world
+CLI_WINDOWS = 64           # (d)'s packed store: 2 steps of 32
+
+
+def nudge_bar(coeffs, gen):
+    """The coefficients moved by about half an fp32 ulp each (a relative
+    2^-24 times a standard normal, rounded to fp32): the input of the
+    gradient-sensitivity runs that set the fp32 leaf bars."""
+    return [(c.double() * (1 + 2 ** -24 * torch.randn(
+        c.shape, generator=gen, device=c.device, dtype=torch.float64))
+             ).float() for c in coeffs]
+
+
+_LAUNCHES = Counter()   # a phase-13 rank's launches, by entry and batch
+
+
+def _spy_launches():
+    """Count (entry point, batch) of every kernel launch from here on in
+    _LAUNCHES, emptied; returns it."""
+    _LAUNCHES.clear()
+    wmod = sys.modules["vae_teb_tpu_torch.kernels.wavefront"]
+    if getattr(wmod._launch, "spied", False):
+        return _LAUNCHES
+    seen, launch = _LAUNCHES, wmod._launch
+
+    def spy(kind, entry, plan, ptrs, K, B, *rest):
+        name = launch(kind, entry, plan, ptrs, K, B, *rest)
+        seen[f"{name} B={B}"] += 1
+        return name
+    spy.spied = True
+    wmod._launch = spy
+    return seen
+
+
+def _grads(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _state_bytes(trainer):
+    """(parameter bytes, Adam moment bytes) this rank holds."""
+    params = list(trainer.model.parameters())
+    st = trainer.optimizer.state
+    return (sum(p.numel() * p.element_size() for p in params),
+            sum(st[p][m].numel() * st[p][m].element_size()
+                for p in params if p in st for m in ("mu", "nu")))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _param_move(after, ref_state, before, lr):
+    """(share of weights more than lr/100 apart, rel-L2 of the difference
+    over the update, running statistics' max-abs over max) of `after`
+    against `ref_state`, both one step from `before` (state_dicts)."""
+    n = far = num = den = 0
+    s_err = 0.0
+    for k, w in ref_state.items():
+        d = after[k].float() - w.float()
+        if k.endswith(("running_mean", "running_var")):
+            s_err = max(s_err, (d.abs().max() / w.abs().max()
+                                .clamp_min(1e-30)).item())
+            continue
+        n += d.numel()
+        far += (d.abs() > 1e-2 * lr).sum().item()
+        num += d.square().sum().item()
+        den += (w.float() - before[k].float()).square().sum().item()
+    return far / n, (num / den) ** 0.5, s_err
+
+
+def _forced_checks(label, snaps, steps, spec, device):
+    """Rank 0's checks of a mesh run: each step against the plain Trainer
+    from the run's full state before it, on the global batch and noise.
+    `steps`: per step (metrics, full model state after it, gradients of
+    step 1 or None). Bars: losses and BatchNorm statistics METRIC_REL_TOL;
+    the rest FP32_NUDGE_RATIO times what the plain step 1 moves when its
+    coefficients move by half an fp32 ulp (`spec["nudge"]`, measured by
+    the parent): the gradients' worst leaf and rel-L2 (grad_norm, which
+    moves by no more than the rel-L2), the parameters' share more than
+    lr/100 apart and rel-L2 of the update. Returns the failures."""
+    from vae_teb_tpu_torch import SeqVaeTeb, Trainer, TrainerConfig
+    cfg = TrainerConfig()
+    ref = Trainer(SeqVaeTeb(**spec["model"]), cfg, device)
+    nudge, r = spec["nudge"], FP32_NUDGE_RATIO
+    failed = []
+
+    def check(name, value, bar):
+        if not value <= bar:
+            failed.append(f"{label} {name}: {value!r} > {bar!r}")
+
+    for i, (snap, (metrics, after, grads)) in enumerate(zip(snaps, steps)):
+        batch = {k: v.to(device) for k, v in spec["batches"][i].items()}
+        ref.load_state_dict(snap)
+        want = {k: v.item() for k, v in ref.train_step(
+            batch, spec["beta"], eps=spec["eps"][i].to(device)).items()}
+        loss_err = max(abs(metrics[k] / want[k] - 1) for k in want
+                       if k != "grad_norm")
+        norm_err = abs(metrics["grad_norm"] / want["grad_norm"] - 1)
+        frac, l2, s_err = _param_move(after, ref.model.state_dict(),
+                                      snap["model"], cfg.lr)
+        line = (f"{label} step {i + 1} against the plain Trainer from its "
+                f"state: losses rel {loss_err!r}, grad_norm rel {norm_err!r} "
+                f"({metrics['grad_norm']!r} / {want['grad_norm']!r}), "
+                f"parameters: share more than lr/100 apart {frac!r}, rel-L2 "
+                f"of the update {l2!r}; running statistics {s_err!r}")
+        check(f"step {i + 1} losses", loss_err, METRIC_REL_TOL)
+        check(f"step {i + 1} running statistics", s_err, METRIC_REL_TOL)
+        check(f"step {i + 1} grad_norm", norm_err, r * nudge["grad_l2"])
+        check(f"step {i + 1} parameter share", frac, r * nudge["share"])
+        check(f"step {i + 1} parameter rel-L2", l2, r * nudge["param_l2"])
+        if grads is not None:
+            worst, leaf, g_l2 = grad_report(grads, _grads(ref.model))
+            line += (f"; gradients worst max-abs/max {worst!r} ({leaf}), "
+                     f"rel-L2 {g_l2!r}")
+            check(f"step {i + 1} gradients, worst leaf {leaf}", worst,
+                  r * nudge["grad_worst"])
+            check(f"step {i + 1} gradients rel-L2", g_l2, r * nudge["grad_l2"])
+        log(line)
+    return failed
+
+
+def _mesh_part(spec, info, device, n_model, n_steps, label):
+    """One mesh run of the full-width model from the seeded weights: each
+    rank steps on its rows of the global batches with the global noise.
+    Every rank reports its metrics, step times, kernel launches and state
+    bytes; rank 0 also checks each step against the plain Trainer."""
+    import copy
+    from vae_teb_tpu_torch import SeqVaeTeb, Trainer, TrainerConfig, init_parameters
+    from vae_teb_tpu_torch.parallel import (data_parallel_mesh, hybrid_mesh,
+                                            shard_batch)
+    mesh = (data_parallel_mesh() if n_model == 1 else
+            hybrid_mesh(info.world_size // n_model, n_model))
+    model = init_parameters(SeqVaeTeb(**spec["model"]), seed=INIT_SEED)
+    trainer = Trainer(model, TrainerConfig(tp_min_dim=spec["tp_min_dim"]),
+                      mesh=mesh)
+    seen = _spy_launches()
+    snaps, steps, times = [], [], []
+    for i in range(n_steps):
+        snaps.append(copy.deepcopy(trainer.state_dict()))   # a collective
+        batch = shard_batch({k: v.to(device) for k, v in
+                             spec["batches"][i].items()}, mesh)
+        _sync(device)
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch, spec["beta"],
+                               eps=spec["eps"][i].to(device))
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics = {k: v.item() for k, v in m.items()}
+        grads = _grads(trainer.model) if i == 0 and n_model == 1 else None
+        after = {k: v.clone() for k, v in trainer.state_dict()["model"].items()}
+        steps.append((metrics, after, grads))
+    params, moments = _state_bytes(trainer)
+    rank = info.rank
+    out = {"metrics": [s[0] for s in steps], "step_ms": times,
+           "launches": dict(seen), "param_bytes": params,
+           "moment_bytes": moments, "mesh": repr(mesh), "failed": []}
+    if rank == 0:
+        out["failed"] = _forced_checks(label, snaps, steps, spec, device)
+    return out
+
+
+def _nccl_part(spec, info, device):
+    """(b): a one-rank NCCL world through the data-parallel path against
+    the plain Trainer on the same seeded weights, batches and noise. The
+    collectives of a world of one leave every value as it is (checked
+    directly); the first step's forward is bit for bit (losses, batch
+    statistics); step 1's gradients (worst leaf) and the parameters after
+    PARALLEL_STEPS steps (rel-L2 of the difference over the update) are
+    no further from the plain Trainer's than twice two plain Trainers'
+    distance from each other: the card's backward adds with atomics in
+    places (F.interpolate's), so two plain runs differ too, by an amount
+    that varies between samples. Step times of both paths, host clock,
+    synchronized."""
+    from vae_teb_tpu_torch import SeqVaeTeb, Trainer, TrainerConfig, init_parameters
+    from vae_teb_tpu_torch.parallel import (all_reduce_mean_,
+                                            data_parallel_mesh)
+    runs, failed = {}, []
+    seen = _spy_launches()
+    for name in ("plain", "mesh", "plain again"):
+        model = init_parameters(SeqVaeTeb(**spec["model"]), seed=INIT_SEED)
+        mesh = data_parallel_mesh() if name == "mesh" else None
+        trainer = Trainer(model, TrainerConfig(), device=device, mesh=mesh)
+        metrics, times = [], []
+        for i in range(PARALLEL_STEPS):
+            batch = {k: v.to(device) for k, v in spec["batches"][i].items()}
+            _sync(device)
+            t0 = time.perf_counter()
+            m = trainer.train_step(batch, spec["beta"],
+                                   eps=spec["eps"][i].to(device))
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: v.item() for k, v in m.items()})
+            if i == 0:
+                grads = _grads(trainer.model)
+                stats = {k: b.clone() for k, b in trainer.model.named_buffers()}
+        if name == "mesh":   # the world of one's collectives, directly
+            probe = [g.clone() for g in grads.values()]
+            all_reduce_mean_(probe, mesh.group("data"), 1)
+            exact = all(torch.equal(p, g) for p, g in zip(probe,
+                                                           grads.values()))
+            avg = trainer.runner.mean({k: torch.tensor(v, device=device)
+                                       for k, v in metrics[0].items()})
+            exact = exact and all(avg[k].item() == metrics[0][k]
+                                  for k in avg)
+            if not exact:
+                failed.append("(b) a world of one's all_reduce changed a value")
+        runs[name] = (metrics, times, grads, stats, {
+            k: v.clone() for k, v in trainer.model.state_dict().items()})
+        del trainer, model
+
+    seeded = init_parameters(SeqVaeTeb(**spec["model"]), seed=INIT_SEED
+                             ).to(device).state_dict()
+    mesh, plain, again = runs["mesh"], runs["plain"], runs["plain again"]
+    losses_equal = all(mesh[0][0][k] == plain[0][0][k]
+                       for k in plain[0][0] if k != "grad_norm")
+    stats_equal = all(torch.equal(mesh[3][k], plain[3][k]) for k in plain[3])
+    g_mesh, g_again = (grad_report(mesh[2], plain[2])[0],
+                       grad_report(again[2], plain[2])[0])
+    p_mesh, p_again = (_param_move(mesh[4], plain[4], seeded, 1e-4)[1],
+                       _param_move(again[4], plain[4], seeded, 1e-4)[1])
+    log(f"(b) one-rank NCCL world vs the plain Trainer ({PARALLEL_STEPS} steps "
+        f"at B={PARALLEL_BATCH}): step-1 losses bit for bit {losses_equal}, "
+        f"batch statistics bit for bit {stats_equal}; step-1 gradients worst "
+        f"max-abs/max {g_mesh!r} (plain vs plain {g_again!r}); parameters "
+        f"after {PARALLEL_STEPS} steps rel-L2 of the update {p_mesh!r} "
+        f"(plain vs plain {p_again!r}); median step ms after a warm-up (plain, NCCL path, "
+        f"plain again, in that order): {statistics.median(plain[1][1:])!r}, "
+        f"{statistics.median(mesh[1][1:])!r}, "
+        f"{statistics.median(again[1][1:])!r} ({spec['card']})")
+    if not (losses_equal and stats_equal):
+        failed.append("(b) the forward is not bit for bit")
+    if not (g_mesh <= 2 * g_again and p_mesh <= 2 * p_again):
+        failed.append(f"(b) gradients {g_mesh} / parameters {p_mesh} apart, "
+                      f"two plain runs {g_again} / {p_again}")
+    return {"launches": dict(seen), "failed": failed,
+            "step_ms": {"nccl": mesh[1], "plain": plain[1],
+                        "plain again": again[1]}}
+
+
+def _parallel_rank(rank, world, port, spec_path, out_path):
+    """A spawned rank of phase 13: joins the world on cuda:0 (gloo, or NCCL
+    for a world of one), runs its parts and writes its report."""
+    import os
+    import torch.distributed as dist
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vae_teb_tpu_torch.parallel import init_distributed
+    spec = torch.load(spec_path, weights_only=False)
+    device = torch.device(spec["device"])
+    if device.type == "cpu":
+        torch.set_num_threads(2)
+    info = init_distributed(backend=spec["backend"], device=device)
+    report = {}
+    for part in spec["parts"]:
+        if part == "dp":
+            report[part] = _mesh_part(spec, info, device, 1, PARALLEL_STEPS,
+                                      "(a) 2-rank data parallel")
+        elif part == "hybrid":
+            report[part] = _mesh_part(spec, info, device, 2, HYBRID_STEPS,
+                                      "(c) 1 x 2 hybrid")
+        else:
+            report[part] = _nccl_part(spec, info, device)
+    dist.destroy_process_group()
+    with open(f"{out_path}.rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def _spawn_world(world, spec, tmp, name):
+    """Run `world` ranks of _parallel_rank; every rank must exit 0 within
+    PARALLEL_TIMEOUT_S. Returns their reports."""
+    import os
+    import socket
+    import torch.multiprocessing as mp
+    spec_path = os.path.join(tmp, f"{name}.pt")
+    torch.save(spec, spec_path)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tmp, name)
+    ctx = mp.start_processes(_parallel_rank,
+                             args=(world, port, spec_path, out),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"phase 13 {name}: ranks still running "
+                                   f"after {PARALLEL_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    reports = []
+    for r in range(world):
+        with open(f"{out}.rank{r}.json") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _cli_phase(device, frontend, gen, tmp):
+    """(d) `cli train --multihost` as a one-rank torchrun world on NCCL: a
+    packed store of CLI_WINDOWS windows through the frontend (model layout,
+    as phase 9's), a YAML config, one epoch; a checkpoint must exist."""
+    import os
+    from vae_teb_tpu_torch.data import PackedWindowStore
+    from vae_teb_tpu_torch.train import (Checkpointer, DatasetConfig,
+                                         ModelConfig, RunConfig, TrainerConfig,
+                                         save_config)
+    parts = {k: [] for k in ("fhr_st", "fhr_ph", "fhr_up_ph", "fhr")}
+    for _ in range(CLI_WINDOWS // 32):
+        x = torch.randn((2, 32, N), generator=gen, device=device)
+        coeffs = frontend(x[0], x[1])
+        for k, c in zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs):
+            parts[k].append(c.cpu().numpy())
+        trim = (N - 16 * coeffs[0].shape[1]) // 2
+        parts["fhr"].append(x[0, :, trim:N - trim].cpu().numpy())
+    arrays = {k: np.ascontiguousarray(np.concatenate(v))
+              for k, v in parts.items()}
+    store = _Windows(arrays)
+    store.raw_layout = False
+    PackedWindowStore.build(store, os.path.join(tmp, "cli_train"))
+    cfg = RunConfig(
+        tag="multihost", out_dir_base=os.path.join(tmp, "runs"),
+        model=ModelConfig(input_channels=arrays["fhr_up_ph"].shape[2],
+                          n_scattering=arrays["fhr_st"].shape[2],
+                          n_phase=arrays["fhr_ph"].shape[2]),
+        trainer=TrainerConfig(epochs=1, seed=INIT_SEED),
+        dataset=DatasetConfig(train_paths=[os.path.join(tmp, "cli_train")],
+                              batch_size=32))
+    path = os.path.join(tmp, "multihost.yaml")
+    save_config(cfg, path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "vae_teb_tpu_torch.cli", "train",
+         "--config", path, "--multihost", "--plot-every", "0",
+         *(["--device", "cpu"] if device.type == "cpu" else [])],
+        cwd=root, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=root))
+    run_dir = cfg.run_dir(create=False)
+    ckpt = Checkpointer(os.path.join(run_dir, "model_checkpoints"))
+    log_path = os.path.join(run_dir, "train_results", "train.log")
+    lines = (open(log_path).read().splitlines()
+             if os.path.exists(log_path) else [])
+    log(f"(d) cli train --multihost, one-rank torchrun world on NCCL: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; latest "
+        f"checkpoint {ckpt.latest()}; log: "
+        + " | ".join(line.split(" - ", 1)[-1] for line in lines
+                     if "epoch 0" in line or "global batch" in line))
+    if proc.returncode != 0 or ckpt.latest() is None:
+        raise AssertionError(f"(d) cli train --multihost failed (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+
+
+def parallel_phase(device, model=None, tp_min_dim=2048):
+    """Phase 13: (a) two ranks sharing cuda:0 over gloo, data parallel at a
+    global B=64 for PARALLEL_STEPS steps, each step against the plain
+    Trainer from the run's state before it; (b) a one-rank NCCL world
+    through the data-parallel path against the plain Trainer; (c) two
+    ranks as 1 x 2 (the four 4800x4800 head kernels sharded) for
+    HYBRID_STEPS steps, checked as (a), with each rank's parameter and
+    moment bytes; (d) `cli train --multihost` under torchrun. `model`:
+    SeqVaeTeb's arguments (full width when None), `tp_min_dim` the
+    TrainerConfig's (the production 2048 shards the heads). Returns each rank's
+    kernel launches of (a) and (c)."""
+    import os
+    import tempfile
+    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
+                                   WindowFrontend, init_parameters,
+                                   production_frontend)
+    from vae_teb_tpu_torch.kernels import build
+    model = model or {}
+    built = (sorted(os.listdir(build.BUILD_DIR))
+             if os.path.isdir(build.BUILD_DIR) else [])
+    frontend = WindowFrontend(production_frontend(device))
+    gen = torch.Generator(device=device).manual_seed(13)
+    batches, eps = [], []
+    for _ in range(PARALLEL_STEPS):
+        x = torch.randn((2, PARALLEL_BATCH, N), generator=gen, device=device)
+        coeffs = frontend(x[0], x[1])
+        seq = coeffs[0].shape[1]
+        batches.append({k: c.cpu() for k, c in zip(
+            ("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs)})
+        batches[-1]["fhr"] = torch.randn((PARALLEL_BATCH, 16 * seq),
+                                         generator=gen, device=device).cpu()
+        eps.append(torch.randn((PARALLEL_BATCH, seq, 32), generator=gen,
+                               device=device).cpu())
+    beta = 1e-5
+    # the step's own sensitivity: the plain step 1 from the seeded weights,
+    # and again on coefficients nudged by half an ulp (the larger move of
+    # NUDGE_DRAWS draws, per measure)
+    ref = None
+    nudge = {}
+    for draw in range(NUDGE_DRAWS + 1):
+        trainer = Trainer(init_parameters(SeqVaeTeb(**model), seed=INIT_SEED),
+                          TrainerConfig(), device)
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        b = {k: v.to(device) for k, v in batches[0].items()}
+        if draw:
+            b.update(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), nudge_bar(
+                [b["fhr_st"], b["fhr_ph"], b["fhr_up_ph"]], gen)))
+        trainer.train_step(b, beta, eps=eps[0].to(device))
+        state = (_grads(trainer.model), trainer.model.state_dict())
+        if draw:
+            worst, leaf, g_l2 = grad_report(state[0], ref[0])
+            share, p_l2, _ = _param_move(state[1], ref[1], before,
+                                         trainer.config.lr)
+            for k, v in (("grad_worst", worst), ("grad_l2", g_l2),
+                         ("share", share), ("param_l2", p_l2)):
+                nudge[k] = max(nudge.get(k, 0.0), v)
+            nudge.setdefault("leaves", []).append(leaf)
+        else:
+            ref = state
+        del trainer
+    del ref
+    log(f"phase 13: the plain step 1 at B={PARALLEL_BATCH} when the "
+        f"coefficients move by half an fp32 ulp (the larger of {NUDGE_DRAWS} "
+        f"draws): gradients worst leaf {nudge['grad_worst']!r} "
+        f"({nudge['leaves']}), rel-L2 {nudge['grad_l2']!r}; parameters share "
+        f"more than lr/100 apart {nudge['share']!r}, rel-L2 of the update "
+        f"{nudge['param_l2']!r}; the mesh runs' bars are {FP32_NUDGE_RATIO} "
+        f"times these")
+    spec = {"batches": batches, "eps": eps, "beta": beta, "nudge": nudge,
+            "model": model, "device": str(device), "tp_min_dim": tp_min_dim,
+            "card": card() if device.type == "cuda" else "cpu"}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
+    os.makedirs(root, exist_ok=True)
+    failed, launches = [], {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        t0 = time.perf_counter()
+        gloo = _spawn_world(2, dict(spec, backend="gloo",
+                                    parts=["dp", "hybrid"]), tmp, "gloo")
+        t1 = time.perf_counter()
+        nccl = _spawn_world(1, dict(spec, backend="nccl" if device.type
+                                    == "cuda" else "gloo", parts=["nccl"]),
+                            tmp, "nccl")
+        t2 = time.perf_counter()
+        log(f"phase 13 worlds: 2 gloo ranks ((a), (c)) {t1 - t0:.1f} s, one "
+            f"NCCL rank ((b)) {t2 - t1:.1f} s, start-up and kernel loads "
+            f"included")
+        for part, steps in (("dp", PARALLEL_STEPS), ("hybrid", HYBRID_STEPS)):
+            for r, rep in enumerate(gloo):
+                got = rep[part]
+                failed += got["failed"]
+                launches[f"{part} rank{r}"] = got["launches"]
+                log(f"{part} rank {r} ({got['mesh']}): step ms {got['step_ms']!r}"
+                    f" (two ranks on one card over gloo's host staging: no "
+                    f"measure of multi-card speed); parameter bytes "
+                    f"{got['param_bytes']}, Adam moment bytes "
+                    f"{got['moment_bytes']}; kernel launches "
+                    f"{got['launches']}; metrics " + "; ".join(
+                        f"step {i + 1} total_loss {m['total_loss']!r} "
+                        f"grad_norm {m['grad_norm']!r}"
+                        for i, m in enumerate(got["metrics"])))
+                local = PARALLEL_BATCH // (2 if part == "dp" else 1)
+                want = {f"wavefront_fwd_res_f32 B={local}": steps,
+                        f"wavefront_bwd_f32 B={local}": steps}
+                if got["launches"] != want:
+                    failed.append(f"{part} rank {r} launched "
+                                  f"{got['launches']}, expected {want}")
+            if gloo[0][part]["metrics"] != gloo[1][part]["metrics"]:
+                failed.append(f"{part}: the ranks' metrics differ")
+        full = gloo[0]["dp"]["param_bytes"]
+        halves = [rep["hybrid"]["param_bytes"] for rep in gloo]
+        heads = 4 * (16 * seq) ** 2 * 4    # four (16 S)^2 fp32 head weights
+        if any(abs(h - (full - heads // 2)) > 0 for h in halves):
+            failed.append(f"(c) a rank holds {halves} parameter bytes, "
+                          f"expected {full - heads // 2}")
+        failed += nccl[0]["nccl"]["failed"]
+        launches["nccl rank0"] = nccl[0]["nccl"]["launches"]
+        _cli_phase(device, frontend, gen, tmp)
+    if os.path.isdir(build.BUILD_DIR) and sorted(
+            os.listdir(build.BUILD_DIR)) != built:
+        failed.append("a rank built the kernels again")
+    if failed:
+        raise AssertionError("phase 13 checks failed:\n" + "\n".join(failed))
+    return launches
+
+
 def main(argv) -> int:
     kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
-    grid_only = argv == ["--grid"]
-    if argv and not (kernels_only or serve_only or grid_only):
-        print("usage: chip_smoke.py [--kernels | --serve | --grid]",
-              file=sys.stderr)
+    grid_only, parallel_only = argv == ["--grid"], argv == ["--parallel"]
+    if argv and not (kernels_only or serve_only or grid_only
+                     or parallel_only):
+        print("usage: chip_smoke.py [--kernels | --serve | --grid | "
+              "--parallel]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2404,6 +2952,9 @@ def main(argv) -> int:
     if grid_only:             # phase 12 (a) alone, also on an older checkout
         check_grid_kernels(device)
         return 0
+    if parallel_only:         # phase 13 alone
+        parallel_phase(device)
+        return 0
     check_residency(device)
 
     kernels = check_kernels(device)
@@ -2419,6 +2970,7 @@ def main(argv) -> int:
     stream_launches, export_launches = stream_export_phase(device)
     grid_kernels = check_grid_kernels(device)
     variant_launches = variants_phase(device)
+    parallel_launches = parallel_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -2447,7 +2999,12 @@ def main(argv) -> int:
             "eval_launches": n_eval, "stream_launches": n_stream,
             "export_launches": n_export,
             "variant_launches": variant_launches.get(
-                bf16_entry.replace("_bf16", "_f32"), 0)})
+                bf16_entry.replace("_bf16", "_f32"), 0),
+            # phase 13, per world and rank: this entry's fp32 launches
+            "parallel_launches": {
+                world: sum(n for e, n in seen.items() if e.split(" B=")[0]
+                           == bf16_entry.replace("_bf16", "_f32"))
+                for world, seen in parallel_launches.items()}})
     # the grid kernels at the forecast decoder's LSTM(256, 3), B=32, fp32;
     # their launches are phase 12's model runs'
     grid_case = ((3,), 32, torch.float32)
@@ -2468,6 +3025,10 @@ def main(argv) -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            "parallel_launches": {
+                world: sum(n for e, n in seen.items()
+                           if e.split(" B=")[0] == f"{entry}_f32")
+                for world, seen in parallel_launches.items()},
             # (max_abs_err, ms, library_ms, bound_ms) at every phase-12
             # shape and storage type, B=32
             "by_shape": {

@@ -199,8 +199,14 @@ def test_each_package_reads_the_others_file(built, mode):
 
 
 def test_write_callback_gets_the_files_windows(built):
-    """`write` receives, record by record, exactly what the HDF5 append
-    would store."""
+    """`write` receives, record by record, what the HDF5 append stores: the
+    same fields, dtypes and shapes, raw fields and labels bit for bit, and
+    the coefficients of this second CPU build within COEFF_BARS of the
+    fixture's. PyTorch gives no bitwise guarantee between two CPU runs of
+    the frontend (MKL's FFT and GEMM take other code paths with the thread
+    count, and the chaotic phase acceleration amplifies the last bit): one
+    tier-1 run found the phase family 2.8e-3 apart at most, on 16.6% of
+    its elements, where this file alone matches bit for bit."""
     batches = []
     res = td.build_dataset(None, n_records=3, windows_per_record=3,
                            len_signal=WINDOW, seed=0, device="cpu",
@@ -213,8 +219,13 @@ def test_write_callback_gets_the_files_windows(built):
             want = f[k][()]
             if k == "guid":
                 want = np.array([g.decode() for g in want])
-            np.testing.assert_array_equal(got.astype(want.dtype), want,
-                                          err_msg=k)
+            got = got.astype(want.dtype)
+            assert got.shape == want.shape, k
+            if k in COEFF_BARS:
+                kind, bar = COEFF_BARS[k]
+                assert _coeff_err(got, want, kind) < bar, k
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=k)
 
 
 class _Faulting:

@@ -459,12 +459,13 @@ def test_cli_test_with_scattering(setup, tmp_path, monkeypatch):
      "--with-scattering"],
     ["train", "--config", "c.yaml"],
     ["train", "--config", "c.yaml", "--plot-every", "0"],
-], ids=["test-defaults", "test-all", "train-defaults", "train-plot-every"])
+    ["train", "--config", "c.yaml", "--model-parallel", "2", "--multihost"],
+], ids=["test-defaults", "test-all", "train-defaults", "train-plot-every",
+        "train-mesh"])
 def test_cli_parsers_match_jax(monkeypatch, argv):
     """`test` takes JAX's flags with JAX's defaults, and `train` JAX's
-    --plot-every; the port adds --device (default: the card). JAX's train
-    flags for a mesh (--model-parallel, --multihost) wait for the DDP
-    slice."""
+    --plot-every, --model-parallel and --multihost; the port adds --device
+    (default: the card)."""
     import vae_teb_tpu.cli as jax_cli
     seen = {}
     fn = {"test": "cmd_test", "train": "cmd_train"}[argv[0]]
@@ -475,9 +476,8 @@ def test_cli_parsers_match_jax(monkeypatch, argv):
     got = {k: v for k, v in seen["torch"].items() if k != "fn"}
     want = {k: v for k, v in seen["jax"].items() if k != "fn"}
     assert got.pop("device") is None
-    if argv[0] == "train":
-        assert want.pop("model_parallel") == 1
-        assert want.pop("multihost") is False
+    if argv[0] == "train" and "--multihost" not in argv:
+        assert got["model_parallel"] == 1 and got["multihost"] is False
     assert got == want
 
 

@@ -4,6 +4,8 @@ stats, pack-data.
     python -m vae_teb_tpu_torch.cli train --config configs/default.yaml \
         [--root DIR] [--resume [CKPT_DIR]] [--device-normalize] \
         [--plot-every 10] [--device cpu]
+    torchrun --nproc_per_node=N -m vae_teb_tpu_torch.cli train \
+        --config configs/default.yaml --multihost [--model-parallel M]
     python -m vae_teb_tpu_torch.cli test --config configs/default.yaml \
         [--checkpoint DIR] [--num-samples 50] [--with-scattering] \
         [--bf16-frontend] [--reduced-frontend] [--device cpu]
@@ -30,7 +32,12 @@ it will run on: `--platforms` (cuda or cpu) names that device as
 statistics file) and calls `run_training`, which a program may call
 directly with a `RunConfig` built in code: on a machine without PyYAML or
 h5py, with train and validation paths that are packed window stores and
-normalization statistics given as `FieldStats`.
+normalization statistics given as `FieldStats`. With --multihost each of
+torchrun's ranks joins the process group (`parallel.init_distributed`:
+NCCL on `cuda:LOCAL_RANK`, gloo with --device cpu) and trains its shard of
+every global batch (the per-device batch times the world);
+--model-parallel M lays the ranks out as (world / M) data x M model and
+shards the wide decoder heads over each model group.
 """
 
 from __future__ import annotations
@@ -94,7 +101,7 @@ def _loaders(cfg, split: str, raw: bool = False):
 
 def run_training(cfg, device=None, resume: Union[bool, str] = False,
                  normalize_stats: Optional[Mapping] = None, log=None,
-                 plot_every: int = 10):
+                 plot_every: int = 10, mesh=None):
     """Train as `cli train` does; returns the Trainer.
 
     Builds the loaders (raw layout when `normalize_stats` is given: the
@@ -109,6 +116,14 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
     (True: this run's checkpoint directory; or a directory) restores the
     latest checkpoint and the history, and continues from the epoch after
     it. Then `Trainer.fit` over cfg.trainer.epochs.
+
+    With a `mesh` (a rank of a torch.distributed run) the global batch is
+    cfg.dataset.batch_size times the ranks; each rank reads its data
+    shard's rows of it (shard_index / shard_count over the mesh's 'data'
+    axis), validation is sharded with ragged tails dropped, rank 0 writes
+    the checkpoints, the history and the figures (the reconstruction
+    figures not at all under tensor parallelism, whose forward is a
+    collective), and every rank watches its own device's memory.
     """
     from .init import init_parameters
     from .train import (Checkpointer, HistoryCallback, LossCurveCallback,
@@ -127,12 +142,17 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
     seq_len = sample["fhr_st"].shape[-1 if raw else 1]
     model = init_parameters(make_model(cfg, seq_len), seed=cfg.trainer.seed)
     trainer = Trainer(model, cfg.trainer, device,
-                      normalize_stats=normalize_stats)
+                      normalize_stats=normalize_stats, mesh=mesh)
     bs = cfg.dataset.batch_size
-    log.info("run dir: %s; device %s, batch %d, precision %s, moments %s, "
-             "accumulate %d", run_dir, trainer.device, bs,
-             cfg.trainer.precision, cfg.trainer.moment_dtype,
-             cfg.trainer.accumulate_grad_batches)
+    rank = 0 if mesh is None else trainer.runner.rank
+    n_data = 1 if mesh is None else mesh.axis_size("data")
+    shard = 0 if mesh is None else mesh.coords["data"]
+    global_bs = bs * (1 if mesh is None else mesh.size)
+    local_bs = global_bs // n_data
+    log.info("run dir: %s; device %s, mesh %s, per-device batch %d, global "
+             "batch %d, precision %s, moments %s, accumulate %d", run_dir,
+             trainer.device, mesh, bs, global_bs, cfg.trainer.precision,
+             cfg.trainer.moment_dtype, cfg.trainer.accumulate_grad_batches)
 
     ckpt_dir = os.path.join(run_dir, "model_checkpoints")
     ckpt = Checkpointer(ckpt_dir, keep=cfg.checkpoints.keep)
@@ -155,17 +175,25 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
                     trainer.history = pickle.load(f)
 
     def train_batches(epoch):
-        return train_ds.as_batches(bs, shuffle=True, seed=epoch)
+        return train_ds.as_batches(local_bs, shuffle=True, seed=epoch,
+                                   shard_index=shard, shard_count=n_data)
 
     def val_batches(epoch):
         return val_ds.as_batches(cfg.dataset.eval_batch_size, shuffle=False,
-                                 drop_last=False)
+                                 drop_last=n_data > 1, shard_index=shard,
+                                 shard_count=n_data)
 
-    callbacks = [HistoryCallback(history_path),
-                 LossCurveCallback(os.path.join(run_dir, "train_results",
-                                                "loss_curves.png")),
-                 MemoryMonitorCallback(log_fn=log.warning)]
-    if val_ds is not None and len(val_ds) and plot_every > 0:
+    callbacks = [] if rank else [
+        HistoryCallback(history_path),
+        LossCurveCallback(os.path.join(run_dir, "train_results",
+                                       "loss_curves.png"))]
+    callbacks.append(MemoryMonitorCallback(log_fn=log.warning))
+    tensor_parallel = mesh is not None and mesh.axis_size("model") > 1
+    if tensor_parallel and plot_every > 0:
+        log.info("no reconstruction figures under tensor parallelism: the "
+                 "forward is a collective of the model group")
+    if (not rank and not tensor_parallel and val_ds is not None
+            and len(val_ds) and plot_every > 0):
         plot_batch = val_ds.read_batch(range(min(2, len(val_ds))))
         if raw:
             # the plot callback feeds the model directly: normalize and
@@ -191,11 +219,30 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
 
 
 def cmd_train(args) -> int:
+    """Train from the YAML config; with --multihost as one of torchrun's
+    ranks, leaving the process group when done."""
+    device, rank, world = args.device, 0, 1
+    if args.multihost:
+        from .parallel import init_distributed
+        info = init_distributed(device=args.device)
+        device, rank, world = info.device, info.rank, info.world_size
+    try:
+        return _train(args, device, rank, world)
+    finally:
+        if args.multihost:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, device, rank: int, world: int) -> int:
     from .train import load_config
     from .utils import get_logger, setup_logging
     cfg = load_config(args.config, root=args.root)
-    setup_logging(os.path.join(cfg.run_dir(), "train_results", "train.log"))
+    setup_logging(os.path.join(cfg.run_dir(), "train_results",
+                               "train.log" if world == 1
+                               else f"train_rank{rank}.log"))
     log = get_logger()
+    log.info("process %d/%d", rank, world)
     norm_stats = None
     if args.device_normalize:
         if not cfg.dataset.stat_path:
@@ -209,8 +256,15 @@ def cmd_train(args) -> int:
     if not cfg.dataset.train_paths:
         log.error("no train_paths configured")
         return 2
-    run_training(cfg, args.device, args.resume, norm_stats, log,
-                 plot_every=args.plot_every)
+    mesh, tp = None, args.model_parallel
+    if world % tp:
+        log.error("--model-parallel %d does not divide %d devices", tp, world)
+        return 2
+    if args.multihost:
+        from .parallel import data_parallel_mesh, hybrid_mesh
+        mesh = hybrid_mesh(world // tp, tp) if tp > 1 else data_parallel_mesh()
+    run_training(cfg, device, args.resume, norm_stats, log,
+                 plot_every=args.plot_every, mesh=mesh)
     return 0
 
 
@@ -411,11 +465,21 @@ def main(argv: Optional[list] = None) -> int:
                     help="feed raw-layout batches and normalize them on the "
                          "device inside the train step (needs "
                          "dataset.stat_path)")
+    pt.add_argument("--model-parallel", type=int, default=1,
+                    dest="model_parallel", metavar="N",
+                    help="shard the wide decoder heads over N ranks (hybrid "
+                         "data x model mesh); default pure data parallelism")
+    pt.add_argument("--multihost", action="store_true",
+                    help="join torchrun's process group first: one rank per "
+                         "device (cuda:LOCAL_RANK over NCCL, or the CPU over "
+                         "gloo with --device cpu); each rank trains its "
+                         "shard of every global batch")
     pt.add_argument("--plot-every", type=int, default=10,
                     help="epochs between val-reconstruction plots "
                          "(0 disables)")
     pt.add_argument("--device", default=None,
-                    help="torch device to train on (default: the CUDA card)")
+                    help="torch device to train on (default: the CUDA "
+                         "card; with --multihost, cuda:LOCAL_RANK)")
     pt.set_defaults(fn=cmd_train)
 
     pe = sub.add_parser("test", help="run the evaluation suite")

@@ -67,6 +67,48 @@ def torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+_INVERSE_MODULES = ((re.compile(r"^dense\.(\d+)$"), r"Dense_\1"),
+                    (re.compile(r"^norm\.(\d+)$"), r"LayerNorm_\1"),
+                    (re.compile(r"^bn$"), "BatchNorm_0"))
+_INVERSE_LEAVES = {"running_mean": "mean", "running_var": "var",
+                   "bias": "bias"}
+
+
+def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
+    """The flax path (collection excluded) of the state_dict entry `key`
+    holding an array of `ndim` dims: `torch_key`'s inverse. A "conv"
+    segment is CausalConv1d_0 when another "conv" follows it (the causal
+    block's wrapper), else Conv_0; "weight" is a kernel when 2-D or more,
+    else a norm's scale."""
+    segs = key.split(".")
+    parts = []
+    i = 0
+    while i < len(segs) - 1:
+        seg = segs[i]
+        pair = ".".join(segs[i:i + 2])
+        for pattern, repl in _INVERSE_MODULES:
+            if pattern.match(pair) and i + 2 < len(segs):
+                parts.append(pattern.sub(repl, pair))
+                i += 2
+                break
+            if pattern.match(seg):
+                parts.append(pattern.sub(repl, seg))
+                i += 1
+                break
+        else:
+            if seg == "conv":
+                parts.append("CausalConv1d_0" if segs[i + 1] == "conv"
+                             else "Conv_0")
+            else:
+                parts.append(seg)
+            i += 1
+    leaf = segs[-1]
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    parts.append(_INVERSE_LEAVES.get(leaf, leaf))
+    return tuple(parts)
+
+
 _DENSE_GENERAL = ("query", "key", "value", "out")
 
 

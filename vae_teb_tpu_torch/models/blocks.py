@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import wavefront_recurrence
+from ..parallel.collectives import all_reduce_sum, copy_to_group, gather_columns
 
 LAYER_NORM_EPS = 1e-6   # flax nn.LayerNorm default
 BATCH_NORM_EPS = 1e-5   # flax nn.BatchNorm default
@@ -106,7 +107,17 @@ Dtype = Optional[torch.dtype]
 
 class Dense(nn.Linear):
     """flax `nn.Dense(dtype=)`: with a compute dtype, the input, weight and
-    bias are cast to it and multiplied in it; None is `nn.Linear`."""
+    bias are cast to it and multiplied in it; None is `nn.Linear`.
+
+    Column-parallel under a 'model' group (`tensor_parallel`, set by
+    `train.distributed.shard_dense`: (group, index, count)): the weight
+    holds rows [index * n, (index + 1) * n) of the full (out, in) weight,
+    n = out / count; each rank multiplies its rows, the ranks' blocks are
+    gathered into the full output and the replicated bias is added to it.
+    The input's gradient sums over the group (each rank's columns give one
+    part of it)."""
+
+    tensor_parallel = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: Dtype = None):
@@ -115,6 +126,14 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.tensor_parallel is not None:
+            group, index, count = self.tensor_parallel
+            w = self.weight if dt is None else self.weight.to(dt)
+            x = copy_to_group(x if dt is None else x.to(dt), group)
+            y = gather_columns(F.linear(x, w), group, index, count)
+            if self.bias is None:
+                return y
+            return y + (self.bias if dt is None else self.bias.to(dt))
         if dt is None:
             return super().forward(x)
         bias = None if self.bias is None else self.bias.to(dt)
@@ -165,7 +184,18 @@ class BatchNorm(nn.Module):
     unbiased. Eval mode normalizes with the running statistics. The
     statistics stay float32; with a compute dtype the normalization runs in
     float32 and the output is cast to it.
+
+    Under a data group (`group`, `group_size`, set by
+    `train.distributed.sync_batch_norm`) the training statistics are the
+    global batch's: each rank's fp32 [E_local[x], E_local[x^2]] averaged
+    over the group (ranks hold equal rows), differentiably, so forward and
+    backward equal one process over the concatenated rows and the running
+    statistics stay identical on every rank. A group of one computes
+    bit for bit what no group computes.
     """
+
+    group = None
+    group_size = 1
 
     def __init__(self, features: int, dtype: Dtype = None):
         super().__init__()
@@ -181,8 +211,13 @@ class BatchNorm(nn.Module):
         else:
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            if self.group is None:
+                mean, sq = xf.mean(axes), (xf * xf).mean(axes)
+            else:
+                stats = torch.stack([xf.mean(axes), (xf * xf).mean(axes)])
+                mean, sq = (all_reduce_sum(stats, self.group)
+                            / self.group_size).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 for ra, batch in ((self.running_mean, mean),
                                   (self.running_var, var)):

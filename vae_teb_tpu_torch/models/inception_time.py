@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import draw
 from .blocks import BatchNorm, Conv1d, Dense, Dtype, LayerNorm, gelu
 from .vae_teb import LATENT_DIM, SeqVaeTeb
 from .vae_teb import compute_loss as vae_compute_loss
@@ -41,12 +42,18 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             shape=None) -> torch.Tensor:
     """flax `nn.Dropout`: in training mode with rate > 0, keep each element
     with probability 1 - rate (a mask of `shape`, broadcast against x, x's
-    own shape when None) and divide the kept ones by 1 - rate."""
+    own shape when None) and divide the kept ones by 1 - rate. A mask of
+    x's shape has a row per batch row: under `parallel.noise_rows` it is
+    drawn for the global batch and the rank keeps its rows; a broadcast
+    mask is shared by every row, so every rank draws the same one."""
     if not training or rate <= 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(shape if shape is not None else x.shape,
-                      generator=generator, device=x.device) < keep_prob
+    if shape is None:
+        u = draw(torch.rand, x.shape, generator=generator, device=x.device)
+    else:
+        u = torch.rand(shape, generator=generator, device=x.device)
+    keep = u < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 

@@ -40,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from ..kernels import wavefront_recurrence
+from ..parallel.collectives import draw, local_rows
 from .blocks import (LSTM, CausalConvBlock, Dtype, LayerNorm,
                      ReflectConvBlock, ResidualMLP, geometric_schedule, gelu,
                      run_lstm_streams)
@@ -389,7 +390,10 @@ def sample_z(enc: Dict[str, torch.Tensor], deterministic: bool,
              eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """z from the encodings: the posterior mean when deterministic, else
     mu_post + eps * exp(logvar_post / 2) with standard-normal eps drawn
-    from `generator` or the caller's `eps` (see `SeqVaeTeb.forward`)."""
+    from `generator` or the caller's `eps` (see `SeqVaeTeb.forward`).
+    Under `parallel.noise_rows` (a data-parallel rank) the draw is the
+    global batch's and eps is the caller's global eps; both keep the
+    rank's rows."""
     mu, logvar = enc["mu_post"], enc["logvar_post"]
     if deterministic:
         return mu
@@ -397,9 +401,11 @@ def sample_z(enc: Dict[str, torch.Tensor], deterministic: bool,
         if generator is None:
             raise ValueError("sampling needs an explicit torch.Generator or "
                              "eps")
-        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                          device=mu.device)
-    elif eps.shape != mu.shape:
+        eps = draw(torch.randn, mu.shape, generator=generator,
+                   dtype=mu.dtype, device=mu.device)
+    else:
+        eps = local_rows(eps, mu.shape[0])
+    if eps.shape != mu.shape:
         raise ValueError(f"eps has shape {tuple(eps.shape)}, expected "
                          f"{tuple(mu.shape)}")
     return mu + eps.to(mu) * torch.exp(0.5 * logvar)

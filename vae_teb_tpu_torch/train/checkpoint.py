@@ -3,7 +3,8 @@
 Port of `vae_teb_tpu.train.checkpoint.Checkpointer` on `torch.save`: the
 same `index.json` ({step, metric, path} entries), the same retention (the
 best `keep` by metric, lower is better, plus always the latest) and the
-same `best()`, `latest()` and `restore(step=, best=)`. A checkpoint is a
+same `best()`, `latest()` and `restore(step=, best=)`; rank 0 of a
+distributed run writes, every rank reads. A checkpoint is a
 directory `step_<step:08d>/` holding `state.pt`, the trainer's
 `state_dict()` (model parameters and BatchNorm statistics, optimizer
 moments in their storage dtype with the update count, generator state,
@@ -19,6 +20,7 @@ import shutil
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 _STATE = "state.pt"
 
@@ -44,7 +46,12 @@ class Checkpointer:
              metric: Optional[float] = None) -> None:
         """Write `state` (a trainer's state_dict()) as checkpoint `step`,
         then drop what the retention rule no longer keeps. The state file
-        is written whole before it replaces an older one of the step."""
+        is written whole before it replaces an older one of the step. In a
+        torch.distributed run only rank 0 writes (every rank holds the same
+        state and shares the directory); the other ranks' calls do nothing
+        and `restore` reads rank 0's files on every rank."""
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         path = self._path(step)
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, _STATE + ".tmp")

@@ -5,8 +5,12 @@ Port of `vae_teb_tpu.train.classifier`: `ClassifierConfig`,
 `ClassifierTrainer` (init_state with a pretrained VAE, train_step with CE
 or LDAM, predict, fit) and `train_and_test_folds`. As in `Trainer`, the
 state lives in the module, the optimizer and a `torch.Generator` on one
-device (the card unless the caller names another); the JAX package's mesh
-becomes that device.
+device (the card unless the caller names another). With a mesh the
+trainer is one data-parallel rank, through `Trainer`'s machinery
+(`train.distributed`): rank 0's weights, synced BatchNorm, the global
+batch's noise and dropout masks, gradients and metrics averaged over the
+data group. Every parameter stays replicated, as the JAX package's
+classifier trainer replicates its state on any mesh.
 
 The optimizer is the JAX chain clip_by_global_norm -> adamw
 (`make_optimizer`), over every parameter of the wrapper, the frozen VAE's
@@ -20,6 +24,7 @@ with requires_grad_(False), under which they do not move at all).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Mapping, Optional, Sequence
@@ -31,7 +36,9 @@ from ..device import resolve_device
 from ..init import init_parameters
 from ..models.inception_time import SeqVaeTebClassifier
 from ..models.variants import ldam_loss
+from ..parallel.mesh import batch_sharding
 from .checkpoint import transfer_params
+from .distributed import MeshRunner
 from .schedules import make_optimizer
 
 
@@ -53,7 +60,9 @@ class ClassifierConfig:
 class ClassifierTrainer:
     """Train and predict steps, and the epoch loop, of a
     SeqVaeTebClassifier on one device: the CUDA card unless `device` names
-    another (`device="cpu"`); the model moves there."""
+    another (`device="cpu"`); the model moves there. With a `mesh`, one
+    data-parallel rank (on the mesh's device unless `device` is given): a
+    batch holds the rank's rows and the step is the global batch's."""
 
     def __init__(self, model: SeqVaeTebClassifier,
                  config: ClassifierConfig = ClassifierConfig(),
@@ -69,14 +78,13 @@ class ClassifierTrainer:
             raise ValueError(f"unknown loss {config.loss!r}")
         if config.loss == "ldam" and config.cls_num_list is None:
             raise ValueError("ldam loss needs cls_num_list")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (a mesh) is not ported yet: ROADMAP "
-                "Queue 1, the DDP slice")
         self.model = model
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
         self.model.to(self.device)
+        self.runner = None if mesh is None else MeshRunner(mesh, self.model)
         self.history: Dict[str, list] = {}
         self._reset()
 
@@ -100,6 +108,8 @@ class ClassifierTrainer:
         given.) Returns the copied keys; raises when a pretrained VAE
         matches nothing."""
         init_parameters(self.model, self.config.seed)
+        if self.runner:     # the same start on every rank
+            self.runner = MeshRunner(self.mesh, self.model)
         copied: List[str] = []
         if pretrained_vae is not None:
             state, copied = transfer_params(
@@ -134,8 +144,10 @@ class ClassifierTrainer:
                                                  "fhr_up_ph"))
         lab = self._labels(batch, labels)
         y_raw = self._tensors(batch, ("fhr",))[0] if self.joint else None
-        out = self.model.train()(y_st, y_ph, x_ph, generator=self.generator,
-                                 eps=eps)
+        runner = self.runner
+        with (runner.noise() if runner else contextlib.nullcontext()):
+            out = self.model.train()(y_st, y_ph, x_ph,
+                                     generator=self.generator, eps=eps)
         losses = SeqVaeTebClassifier.compute_loss(
             out, lab, y_st=y_st, y_ph=y_ph, y_raw=y_raw,
             compute_vae_loss=self.joint, vae_loss_weight=cfg.vae_loss_weight)
@@ -150,6 +162,8 @@ class ClassifierTrainer:
         for p in self.model.parameters():   # the frozen VAE: zero, as optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if runner:
+            runner.reduce_grads(list(self.model.parameters()))
         self.optimizer.step()
         self.step += 1
         metrics = {"loss": losses["total_loss"].detach(),
@@ -158,7 +172,7 @@ class ClassifierTrainer:
                        losses["classification_loss"].detach()}
         if self.joint:
             metrics["vae_loss"] = losses["vae_loss"].detach()
-        return metrics
+        return runner.mean(metrics) if runner else metrics
 
     @torch.inference_mode()
     def predict(self, batch: Mapping):
@@ -198,14 +212,17 @@ def train_and_test_folds(make_model: Callable[[], SeqVaeTebClassifier],
                          config: ClassifierConfig = ClassifierConfig(),
                          batch_size: int = 8, device=None,
                          pretrained_vae: Optional[Mapping] = None,
-                         log_fn: Callable[[str], None] = print) -> Dict:
+                         log_fn: Callable[[str], None] = print,
+                         mesh=None) -> Dict:
     """The k-fold classifier workflow: per fold, a fresh trainer on the
     train GUIDs' windows, then the test windows' probabilities.
 
     dataset: len(), dataset[i]["guid"] and dataset.collate(indices) -> a
     batch; folds: `data.splits.create_cv_splits` over GUID groups;
     label_fn(batch) -> integer labels. A fold without train or test
-    windows is skipped. Returns {fold: {probabilities, labels,
+    windows is skipped. With a `mesh` each fold trains data-parallel: the
+    rank takes its rows of every batch of `batch_size` (a multiple of the
+    data axis) and predicts the whole test set. Returns {fold: {probabilities, labels,
     test_indices}} for `eval.classification.aggregate_fold_results`.
     """
     results = {}
@@ -218,14 +235,17 @@ def train_and_test_folds(make_model: Callable[[], SeqVaeTebClassifier],
                     if dataset[i]["guid"] in test_guids]
         if not train_idx or not test_idx:
             continue
-        trainer = ClassifierTrainer(make_model(), config, device=device)
+        trainer = ClassifierTrainer(make_model(), config, device=device,
+                                    mesh=mesh)
         trainer.init_state(pretrained_vae)
+        rows = (slice(None) if mesh is None else
+                batch_sharding(mesh).block(batch_size))
 
         def batches(epoch, idx=tuple(train_idx)):
             order = np.random.default_rng(epoch).permutation(len(idx))
             for start in range(0, len(order) - batch_size + 1, batch_size):
-                yield dataset.collate([idx[j] for j in
-                                       order[start:start + batch_size]])
+                chunk = order[start:start + batch_size][rows]
+                yield dataset.collate([idx[j] for j in chunk])
 
         trainer.fit(batches, label_fn, log_fn=log_fn)
         probs_all, labels_all = [], []

@@ -24,6 +24,14 @@ port runs the same math over the parameter list with `torch._foreach_*`.
 
 `MultiSteps` is `optax.MultiSteps`: gradients averaged over k micro-steps,
 the wrapped optimizer stepped once per k on the average.
+
+Under tensor parallelism (`sharded`, `model_group`) some parameters are a
+model rank's rows of a larger weight. The clip then uses the norm of the
+global arrays, as `optax.global_norm` does: the squared norms of the
+sharded gradients sum over the model group and the replicated ones count
+once. Their Adam moments are the shards' own, so they live sharded. Under
+data parallelism the trainer hands the optimizer gradients already
+averaged over the data group, on every micro-step.
 """
 
 from __future__ import annotations
@@ -70,10 +78,23 @@ def cosine_warm_restarts(base_lr: float, t0_steps: int,
     return fn
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor],
+                sharded: Optional[List[bool]] = None,
+                model_group=None) -> torch.Tensor:
     """The L2 norm of all gradients together (`optax.global_norm`), a 0-dim
-    tensor on their device."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    tensor on their device. With `sharded` (a flag per gradient: a model
+    rank's block of a larger array) the norm is the global arrays': the
+    sharded blocks' squared norms are summed over `model_group`."""
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+    import torch.distributed as dist
+    norms = torch.stack(torch._foreach_norm(grads))
+    mask = torch.as_tensor(sharded, device=norms.device)
+    sq = norms * norms
+    part = torch.where(mask, sq, 0.0).sum()
+    dist.all_reduce(part, group=model_group)
+    return torch.sqrt(torch.where(mask, 0.0, sq).sum() + part)
 
 
 def _params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
@@ -89,14 +110,17 @@ class ClippedAdamW(torch.optim.Optimizer):
     updates taken before this one (optax's count). `step()` reads `p.grad`
     without changing it, updates the parameters and the moments in place,
     and returns the global gradient norm before clipping as a 0-dim tensor
-    on the parameters' device (no host synchronisation).
+    on the parameters' device (no host synchronisation). `sharded`: the
+    parameters that are a model rank's block of a larger weight, whose
+    squared norms sum over `model_group` (see the module docstring).
     """
 
     def __init__(self, params: Iterable[torch.Tensor],
                  lr: Union[float, Callable[[int], float]] = 1e-4,
                  grad_clip_norm: float = 0.5, weight_decay: float = 1e-4,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 moment_dtype: Optional[torch.dtype] = None):
+                 moment_dtype: Optional[torch.dtype] = None,
+                 sharded: Iterable[torch.Tensor] = (), model_group=None):
         super().__init__(params, dict(lr=lr, grad_clip_norm=grad_clip_norm,
                                       weight_decay=weight_decay, b1=b1, b2=b2,
                                       eps=eps, moment_dtype=moment_dtype))
@@ -104,6 +128,14 @@ class ClippedAdamW(torch.optim.Optimizer):
             raise ValueError("ClippedAdamW clips over one global norm: pass "
                              "one parameter group")
         self.count = 0
+        self.sharded = {id(p) for p in sharded}
+        self.model_group = model_group
+
+    def grad_norm(self, params: List[torch.Tensor],
+                  grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of `grads`, the gradients of `params`."""
+        return global_norm(grads, [id(p) in self.sharded for p in params],
+                           self.model_group)
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
@@ -125,7 +157,7 @@ class ClippedAdamW(torch.optim.Optimizer):
         # optax.clip_by_global_norm: below max_norm the gradient passes
         # unchanged, above it becomes (g / norm) * max_norm; one divisor and
         # one factor per branch keep both exact without a host round trip
-        norm = global_norm(grads)
+        norm = self.grad_norm(params, grads)
         max_norm = group["grad_clip_norm"]
         below = norm < max_norm
         g = torch._foreach_div(grads, torch.where(below, 1.0, norm))
@@ -219,7 +251,8 @@ class MultiSteps:
             raise RuntimeError("MultiSteps.step: every parameter needs a "
                                "gradient")
         grads = [p.grad for p in params]
-        norm = global_norm(grads)
+        norm = (self.inner.grad_norm(params, grads)
+                if hasattr(self.inner, "grad_norm") else global_norm(grads))
         if self.acc is None:
             self.acc = [torch.zeros_like(g) for g in grads]
         delta = torch._foreach_sub(grads, self.acc)
@@ -249,9 +282,12 @@ def make_optimizer(params: Iterable[torch.Tensor],
                    lr: Union[float, Callable[[int], float]],
                    grad_clip_norm: float = 0.5, weight_decay: float = 1e-4,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                   moment_dtype: Optional[torch.dtype] = None) -> ClippedAdamW:
+                   moment_dtype: Optional[torch.dtype] = None,
+                   sharded: Iterable[torch.Tensor] = (),
+                   model_group=None) -> ClippedAdamW:
     """The AdamW chain with global-norm clipping over `params`.
     moment_dtype=torch.bfloat16 stores both Adam moments at rest in bf16;
-    None keeps them in the parameters' dtype."""
+    None keeps them in the parameters' dtype. `sharded` / `model_group`:
+    tensor-parallel blocks (see `ClippedAdamW`)."""
     return ClippedAdamW(params, lr, grad_clip_norm, weight_decay, b1, b2, eps,
-                        moment_dtype)
+                        moment_dtype, sharded, model_group)

@@ -11,13 +11,22 @@ count is `Trainer.step`, all on one explicit device. Each step updates
 them in place; `state_dict()` / `load_state_dict()` save and restore all
 of them (`train.checkpoint.Checkpointer`).
 
-Not ported yet (each raises, naming its ROADMAP item): steps_per_execution
-> 1, whose counterpart is a CUDA-graph capture of the step, and the
-multi-device knobs (a mesh, tp_min_dim), which wait for the DDP slice.
+Multi-device training: `Trainer(mesh=...)` with a mesh of
+`parallel.data_parallel_mesh()` or `parallel.hybrid_mesh(n_data, n_model)`,
+one process a device (torchrun's ranks, `parallel.init_distributed`). Each
+rank steps on its rows of the global batch; BatchNorm statistics, noise,
+gradients and metrics are the global batch's, and on a 'model' axis the
+wide decoder-head weights and their Adam moments are sharded by
+`tp_min_dim` (`train.distributed`). `mesh=None` is the one-device trainer,
+unchanged.
+
+Not ported yet: steps_per_execution > 1, whose counterpart is a CUDA-graph
+capture of the step (ROADMAP Queue 1 item 2); it raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import (Callable, Dict, Iterable, Iterator, Mapping, Optional,
@@ -28,11 +37,11 @@ import torch
 
 from ..device import resolve_device
 from ..models.vae_teb import SeqVaeTeb, compute_loss
+from .distributed import MeshRunner
 from .schedules import (MultiSteps, beta_schedule, cosine_warm_restarts,
                         global_norm, make_optimizer)
 
 FIELDS = ("fhr_st", "fhr_ph", "fhr_up_ph", "fhr")   # y_st, y_ph, x_ph, y_raw
-_TP_MIN_DIM = 2048
 
 
 @dataclass
@@ -62,13 +71,15 @@ class TrainerConfig:
     accumulate_grad_batches: int = 1
     # Adam moment storage: "fp32" or "bf16"
     moment_dtype: str = "fp32"
-    # tensor-parallel threshold of the JAX package's hybrid mesh: any other
-    # value raises (ROADMAP Queue 1, the DDP slice)
-    tp_min_dim: int = _TP_MIN_DIM
+    # tensor-parallel threshold on a hybrid ('data', 'model') mesh: Dense
+    # weights with output dim >= tp_min_dim shard over 'model'
+    # (parallel.tensor_parallel_rule); read only when the mesh has a
+    # 'model' axis of size > 1
+    tp_min_dim: int = 2048
     # batches staged onto the device ahead of the step (0 disables)
     prefetch: int = 2
     # > 1 raises: its counterpart, a CUDA-graph capture of the step, is
-    # ROADMAP Queue 1's next item
+    # ROADMAP Queue 1 item 2
     steps_per_execution: int = 1
 
     def model_dtype(self) -> Optional[torch.dtype]:
@@ -92,6 +103,13 @@ class Trainer:
     """Train and eval steps, and the epoch loop, for a SeqVaeTeb on one
     device: the CUDA card unless `device` names another (`device="cpu"`);
     the model moves there.
+
+    With a `mesh` (`parallel.data_parallel_mesh` / `hybrid_mesh`) the
+    trainer is one rank of a data- or tensor-parallel run, on the mesh's
+    device unless `device` is given: a batch holds the rank's rows of the
+    global batch (`parallel.shard_batch`; the loaders' shard_index /
+    shard_count), a caller's `eps` is the global batch's, and every rank
+    computes the global batch's step (see `train.distributed`).
 
     The model's compute dtype must be the config's (`SeqVaeTeb(dtype=
     config.model_dtype())`). `optimizer`, the counterpart of the JAX
@@ -121,22 +139,27 @@ class Trainer:
         if config.steps_per_execution > 1:
             raise NotImplementedError(
                 "steps_per_execution > 1 (a CUDA-graph capture of the step) "
-                "is not ported yet: ROADMAP Queue 1")
-        if mesh is not None or config.tp_min_dim != _TP_MIN_DIM:
-            raise NotImplementedError(
-                "multi-device training (mesh, tp_min_dim) is not ported yet: "
-                "ROADMAP Queue 1, the DDP slice")
+                "is not ported yet: ROADMAP Queue 1 item 2")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
         self.model = model.to(self.device)
         self.normalize_stats = normalize_stats
+        self.runner = (None if mesh is None else
+                       MeshRunner(mesh, self.model, config.tp_min_dim))
+        sharded = [] if mesh is None else self.runner.sharded_params
         params = list(self.model.parameters())
         if optimizer is None:
             lr = (cosine_warm_restarts(config.lr, config.lr_t0_steps)
                   if config.lr_t0_steps > 0 else config.lr)
             self.optimizer = make_optimizer(
                 params, lr, config.grad_clip_norm, config.weight_decay,
-                moment_dtype=moment_dtype)
+                moment_dtype=moment_dtype, sharded=sharded,
+                model_group=None if mesh is None else self.runner.model_group)
+        elif sharded:
+            raise ValueError("a sharded model needs the default optimizer, "
+                             "whose clip norm sums the shards")
         else:
             self.optimizer = optimizer(params)
         if config.accumulate_grad_batches > 1:
@@ -191,27 +214,35 @@ class Trainer:
         """
         y_st, y_ph, x_ph, y_raw = self._prep(*self._batch(batch))
         model = self.model.train()
-        out = model(y_st, y_ph, x_ph, deterministic=False,
-                    generator=self.generator, eps=eps)
+        runner = self.runner
+        with (runner.noise() if runner else contextlib.nullcontext()):
+            out = model(y_st, y_ph, x_ph, deterministic=False,
+                        generator=self.generator, eps=eps)
         losses = compute_loss(out, y_st, y_ph, y_raw, beta=beta)
         self.optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
+        if runner:
+            runner.reduce_grads(list(self.model.parameters()))
         grad_norm = self.optimizer.step()
         if grad_norm is None:   # a torch.optim optimizer returns no norm
             grad_norm = global_norm([p.grad for p in self.model.parameters()
                                      if p.grad is not None])
         self.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
+        if runner:
+            metrics = runner.mean(metrics)
         metrics["grad_norm"] = grad_norm
         return metrics
 
     @torch.no_grad()
     def eval_step(self, batch: Mapping, beta: float) -> Dict[str, torch.Tensor]:
         """The deterministic forward (posterior mean, running statistics)
-        and its losses; changes no state."""
+        and its losses, over the data group's rows under a mesh; changes
+        no state."""
         y_st, y_ph, x_ph, y_raw = self._prep(*self._batch(batch))
         out = self.model.eval()(y_st, y_ph, x_ph, deterministic=True)
-        return compute_loss(out, y_st, y_ph, y_raw, beta=beta)
+        losses = compute_loss(out, y_st, y_ph, y_raw, beta=beta)
+        return self.runner.mean(losses) if self.runner else losses
 
     # -- state ---------------------------------------------------------------
 
@@ -219,15 +250,27 @@ class Trainer:
         """Everything a resumed run needs to continue exactly: the model's
         parameters and BatchNorm statistics, the optimizer's state (moments
         in their storage dtype, the update count, accumulated gradients),
-        the generator's state and the step count."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        the generator's state and the step count. Under tensor parallelism
+        the sharded weights and their moments are gathered whole (every
+        rank must call it), so the state loads under any layout."""
+        model_state = self.model.state_dict()
+        optimizer_state = self.optimizer.state_dict()
+        if self.runner and self.runner.sharded:
+            model_state, optimizer_state = self.runner.full_state(
+                model_state, optimizer_state)
+        return {"model": model_state, "optimizer": optimizer_state,
                 "generator": self.generator.get_state(),
                 "step": self.step}
 
     def load_state_dict(self, state: Mapping) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Restore a `state_dict()` (full arrays; a tensor-parallel rank
+        keeps its rows of the sharded ones)."""
+        model_state, optimizer_state = state["model"], state["optimizer"]
+        if self.runner and self.runner.sharded:
+            model_state, optimizer_state = self.runner.local_state(
+                model_state, optimizer_state)
+        self.model.load_state_dict(model_state)
+        self.optimizer.load_state_dict(optimizer_state)
         self.generator.set_state(state["generator"])
         self.step = int(state["step"])
 
@@ -257,7 +300,8 @@ class Trainer:
         windows_per_sec, train/<metric>, val/<metric>) and one log line.
         The monitored metric is the validation total_loss, else the train
         one; `checkpointer.save(self.state_dict(), step=epoch,
-        metric=monitored)` keeps the best; training stops after
+        metric=monitored)` keeps the best (on rank 0: under a mesh every
+        rank agrees on the metrics); training stops after
         `early_stop_patience` epochs without improvement (0: never).
         callbacks: objects with on_epoch_end(trainer, epoch) and
         on_fit_end(trainer); an exception in one is logged, never fatal.
@@ -278,8 +322,9 @@ class Trainer:
                 batches = prefetch_to_device(batches, size=cfg.prefetch,
                                              device=self.device,
                                              array_fields=FIELDS)
+            rows = self.runner.n_data if self.runner else 1
             for batch in batches:
-                n_windows += int(batch["fhr"].shape[0])
+                n_windows += rows * int(batch["fhr"].shape[0])
                 train_metrics.append(self.train_step(batch, beta))
             train_avg = self._mean(train_metrics)
             epoch_time = time.time() - t0
@@ -307,7 +352,7 @@ class Trainer:
 
             monitored = val_avg.get("total_loss",
                                     train_avg.get("total_loss", float("inf")))
-            if checkpointer is not None:
+            if checkpointer is not None:   # state_dict(): a collective
                 checkpointer.save(self.state_dict(), step=epoch,
                                   metric=monitored)
             for cb in callbacks:

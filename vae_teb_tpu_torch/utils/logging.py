@@ -1,6 +1,6 @@
 """Logging setup: console plus an optional rotating file, on the standard
 library. Port of `vae_teb_tpu.utils.logging` (`setup_logging`,
-`get_logger`) for the logger named "vae_teb_tpu_torch"."""
+`get_logger`, `StreamToLogger`) for the logger named "vae_teb_tpu_torch"."""
 
 from __future__ import annotations
 
@@ -49,3 +49,26 @@ def setup_logging(log_file: Optional[str] = None, level: int = logging.INFO,
 
 def get_logger(name: str = LOGGER) -> logging.Logger:
     return logging.getLogger(name)
+
+
+class StreamToLogger:
+    """A file-like object that writes each complete line to `logger` at
+    `level` (redirect sys.stdout / sys.stderr into the log); `flush` writes
+    a pending partial line."""
+
+    def __init__(self, logger: logging.Logger, level: int = logging.INFO):
+        self.logger = logger
+        self.level = level
+        self._buffer = ""
+
+    def write(self, message: str) -> None:
+        self._buffer += message
+        while "\n" in self._buffer:
+            line, self._buffer = self._buffer.split("\n", 1)
+            if line.strip():
+                self.logger.log(self.level, line.rstrip())
+
+    def flush(self) -> None:
+        if self._buffer.strip():
+            self.logger.log(self.level, self._buffer.rstrip())
+        self._buffer = ""
