@@ -9,6 +9,7 @@ training on an NVIDIA GPU.
     python3 chip_smoke.py --serve     # phases 1, 2 and 4, printing no result
     python3 chip_smoke.py --grid      # phases 1, 2 and 12 (a), printing no result
     python3 chip_smoke.py --parallel  # phases 1, 2 and 13, printing no result
+    python3 chip_smoke.py --capture   # phases 1, 2 and 14, printing no result
 
 Run with --kernels, --serve or --grid from a copy placed at the root of
 another checkout, it times that checkout's kernels or serving path (the
@@ -154,14 +155,13 @@ Phases, each of which raises on failure (exit code 1):
  13. data- and tensor-parallel training of the full-width fp32 model from
      the seeded weights (TF32 off) at a global B=64 on seeded windows
      through the production frontend, ranks spawned by
-     torch.multiprocessing that load the kernels this process built: the
-     plain step 1 and its move under half-ulp nudges of the coefficients
-     first (the bars' scale); (a) two ranks sharing cuda:0 over gloo, data
-     parallel, 3 steps, each rank launching wavefront_fwd_res_f32 and
-     wavefront_bwd_f32 once a step at B=32, every step held to the plain
-     Trainer from the run's full state before it (losses and statistics
-     1e-4; gradients, grad_norm and parameters FP32_NUDGE_RATIO times the
-     nudge's move); (b) a one-rank NCCL world through the data-parallel
+     torch.multiprocessing that load the kernels this process built: (a)
+     two ranks sharing cuda:0 over gloo, data parallel, 3 steps, each rank
+     launching wavefront_fwd_res_f32 and wavefront_bwd_f32 once a step at
+     B=32, every step held to the plain Trainer from the run's full state
+     before it (losses and statistics 1e-4; gradients, grad_norm and
+     parameters FP32_NUDGE_RATIO times that plain step's own move under
+     half-ulp nudges of the coefficients); (b) a one-rank NCCL world through the data-parallel
      path against the plain Trainer: the forward bit for bit, the rest no
      further apart than two plain runs, both step times; (c) two ranks as
      1 data x 2 model, the four head kernels sharded, 2 steps checked as
@@ -170,15 +170,48 @@ Phases, each of which raises on failure (exit code 1):
      packed store; a checkpoint must exist. Step times of two ranks on one
      card are no measure of multi-card speed. A rank that fails or passes
      PARALLEL_TIMEOUT_S fails the phase;
- 14. print the card's nvidia-smi name and power limit, one JSON line for
+ 14. steps_per_execution: the train step captured as a CUDA graph and
+     replayed (Trainer.train_multi_step) on the full-width fp32 model from
+     the seeded weights: (a) at B=32, 8 eager steps five times from one
+     state (E1-E5) and two groups of K=4 (C: the first eager, the second
+     four replays); C bit for bit with E1 where every run is the same by
+     construction (the count, the generator state, the step, the first
+     step's losses), and each group of entries (each metric over the 8
+     steps, parameters, statistics, each moment; the state's groups
+     against their move from the start) within twice the largest
+     relative distance between two eager runs, or 1e-5 (the backward is
+     not deterministic on the card); then one replay from C's state
+     against three eager steps from it, at the same bars, which must
+     reject two controls (no step; bias corrections at the capture's
+     count); the train-mode forward with its losses and the optimizer
+     step, each captured alone and replayed from the eager run's state,
+     bit for bit; (b) C launched
+     wavefront_fwd_res_f32 and wavefront_bwd_f32 8 times each by the
+     counters, a torch.profiler window over one replay shows each kernel
+     once, and the host calls that start device work, a step, captured
+     against eager; (c) ms a step, device busy time, idle share, device
+     events, host launch calls and peak memory, eager against captured,
+     at B = 32 and 128 in fp32 and in bf16 (bf16 moments); (d)
+     `cli.run_training` on a packed store of 10 batches of 32 (device
+     normalization, 2 epochs) with steps_per_execution 4 (groups 4, 4, 2
+     an epoch) against three runs with 1: the history within twice the K=1
+     runs' spread, windows/s of each epoch; (e) SeqVaeTeb(lstm_hidden_dim=128),
+     whose LSTM takes the grid kernels' cooperative launch, at B=32: two
+     groups of 2 against 4 eager steps five times, held as (a), 4
+     launches of each grid kernel; (f) accumulate_grad_batches=2 with K=4
+     as (a): a graph a micro-step, each replayed twice, the count and the
+     micro-step exact, one replay of each micro-step from one state;
+     `--capture` runs this phase alone;
+ 15. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start, the serving forward's launches
      in phase 10, in phase 11 the sessions' and the loaded programs', and
      phase 12's model runs', and phase 13's per world and rank
-     (`parallel_launches`); the grid kernels' rows at (3, 256), B=32,
-     fp32, with their errors, times, cuDNN times and bounds at every
-     phase-12 shape and storage type, `by_shape`), and last {"ok": true,
-     "device": {...}}.
+     (`parallel_launches`), and phase 14's launches by graph replays, per
+     storage type (`captured_launches`); the grid kernels' rows at (3,
+     256), B=32, fp32, with their errors, times, cuDNN times and bounds at
+     every phase-12 shape and storage type, `by_shape`), and last {"ok":
+     true, "device": {...}}.
 """
 
 import json
@@ -1423,8 +1456,8 @@ def fit_phase(device):
     if diff or mom_diff or restored["step"] != saved["step"]:
         failed.append(f"restored state differs: {diff[:5]}, {mom_diff} "
                       f"moments, step {restored['step']} vs {saved['step']}")
-    counts = (first.optimizer.inner.count, second.optimizer.inner.count,
-              first.step, second.step)
+    counts = (int(first.optimizer.inner.count),
+              int(second.optimizer.inner.count), first.step, second.step)
     want = (3 * n_steps // 2, 4 * n_steps // 2, 3 * n_steps, 4 * n_steps)
     log(f"fit: optimizer updates / train steps after 3 epochs "
         f"{counts[0]} / {counts[2]}, after the resumed 4th {counts[1]} / "
@@ -2505,15 +2538,18 @@ def _forced_checks(label, snaps, steps, spec, device):
     from the run's full state before it, on the global batch and noise.
     `steps`: per step (metrics, full model state after it, gradients of
     step 1 or None). Bars: losses and BatchNorm statistics METRIC_REL_TOL;
-    the rest FP32_NUDGE_RATIO times what the plain step 1 moves when its
-    coefficients move by half an fp32 ulp (`spec["nudge"]`, measured by
-    the parent): the gradients' worst leaf and rel-L2 (grad_norm, which
-    moves by no more than the rel-L2), the parameters' share more than
-    lr/100 apart and rel-L2 of the update. Returns the failures."""
+    the rest FP32_NUDGE_RATIO times what the plain step from the same
+    state moves when its coefficients move by half an fp32 ulp (the larger
+    move of NUDGE_DRAWS draws, per measure): the gradients' worst leaf and
+    rel-L2 (grad_norm, which moves by no more than the rel-L2), the
+    parameters' share more than lr/100 apart and rel-L2 of the update.
+    The share depends on the state (how many weights an Adam step leaves
+    near zero), so each step's bar is measured from that step's state.
+    Returns the failures."""
     from vae_teb_tpu_torch import SeqVaeTeb, Trainer, TrainerConfig
     cfg = TrainerConfig()
     ref = Trainer(SeqVaeTeb(**spec["model"]), cfg, device)
-    nudge, r = spec["nudge"], FP32_NUDGE_RATIO
+    r = FP32_NUDGE_RATIO
     failed = []
 
     def check(name, value, bar):
@@ -2522,14 +2558,33 @@ def _forced_checks(label, snaps, steps, spec, device):
 
     for i, (snap, (metrics, after, grads)) in enumerate(zip(snaps, steps)):
         batch = {k: v.to(device) for k, v in spec["batches"][i].items()}
+        eps = spec["eps"][i].to(device)
         ref.load_state_dict(snap)
         want = {k: v.item() for k, v in ref.train_step(
-            batch, spec["beta"], eps=spec["eps"][i].to(device)).items()}
+            batch, spec["beta"], eps=eps).items()}
+        want_state = {k: v.clone() for k, v in ref.model.state_dict().items()}
+        want_grads = _grads(ref.model)
+        # the plain step's own sensitivity from this state
+        gen = torch.Generator(device=device).manual_seed(13 + i)
+        nudge, leaves = {}, []
+        for _ in range(NUDGE_DRAWS):
+            ref.load_state_dict(snap)
+            nudged = dict(batch)
+            nudged.update(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), nudge_bar(
+                [batch["fhr_st"], batch["fhr_ph"], batch["fhr_up_ph"]], gen)))
+            ref.train_step(nudged, spec["beta"], eps=eps)
+            worst, leaf, g_l2 = grad_report(_grads(ref.model), want_grads)
+            share, p_l2, _ = _param_move(ref.model.state_dict(), want_state,
+                                         snap["model"], cfg.lr)
+            for k, v in (("grad_worst", worst), ("grad_l2", g_l2),
+                         ("share", share), ("param_l2", p_l2)):
+                nudge[k] = max(nudge.get(k, 0.0), v)
+            leaves.append(leaf)
         loss_err = max(abs(metrics[k] / want[k] - 1) for k in want
                        if k != "grad_norm")
         norm_err = abs(metrics["grad_norm"] / want["grad_norm"] - 1)
-        frac, l2, s_err = _param_move(after, ref.model.state_dict(),
-                                      snap["model"], cfg.lr)
+        frac, l2, s_err = _param_move(after, want_state, snap["model"],
+                                      cfg.lr)
         line = (f"{label} step {i + 1} against the plain Trainer from its "
                 f"state: losses rel {loss_err!r}, grad_norm rel {norm_err!r} "
                 f"({metrics['grad_norm']!r} / {want['grad_norm']!r}), "
@@ -2541,13 +2596,18 @@ def _forced_checks(label, snaps, steps, spec, device):
         check(f"step {i + 1} parameter share", frac, r * nudge["share"])
         check(f"step {i + 1} parameter rel-L2", l2, r * nudge["param_l2"])
         if grads is not None:
-            worst, leaf, g_l2 = grad_report(grads, _grads(ref.model))
+            worst, leaf, g_l2 = grad_report(grads, want_grads)
             line += (f"; gradients worst max-abs/max {worst!r} ({leaf}), "
                      f"rel-L2 {g_l2!r}")
             check(f"step {i + 1} gradients, worst leaf {leaf}", worst,
                   r * nudge["grad_worst"])
             check(f"step {i + 1} gradients rel-L2", g_l2, r * nudge["grad_l2"])
-        log(line)
+        log(line + f"; the plain step from the same state when the "
+            f"coefficients move by half an fp32 ulp (the larger of "
+            f"{NUDGE_DRAWS} draws): gradients worst leaf "
+            f"{nudge['grad_worst']!r} ({leaves}), rel-L2 {nudge['grad_l2']!r}"
+            f", parameters share {nudge['share']!r}, rel-L2 of the update "
+            f"{nudge['param_l2']!r}; the bars are {r} times these")
     return failed
 
 
@@ -2822,41 +2882,7 @@ def parallel_phase(device, model=None, tp_min_dim=2048):
         eps.append(torch.randn((PARALLEL_BATCH, seq, 32), generator=gen,
                                device=device).cpu())
     beta = 1e-5
-    # the step's own sensitivity: the plain step 1 from the seeded weights,
-    # and again on coefficients nudged by half an ulp (the larger move of
-    # NUDGE_DRAWS draws, per measure)
-    ref = None
-    nudge = {}
-    for draw in range(NUDGE_DRAWS + 1):
-        trainer = Trainer(init_parameters(SeqVaeTeb(**model), seed=INIT_SEED),
-                          TrainerConfig(), device)
-        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-        b = {k: v.to(device) for k, v in batches[0].items()}
-        if draw:
-            b.update(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), nudge_bar(
-                [b["fhr_st"], b["fhr_ph"], b["fhr_up_ph"]], gen)))
-        trainer.train_step(b, beta, eps=eps[0].to(device))
-        state = (_grads(trainer.model), trainer.model.state_dict())
-        if draw:
-            worst, leaf, g_l2 = grad_report(state[0], ref[0])
-            share, p_l2, _ = _param_move(state[1], ref[1], before,
-                                         trainer.config.lr)
-            for k, v in (("grad_worst", worst), ("grad_l2", g_l2),
-                         ("share", share), ("param_l2", p_l2)):
-                nudge[k] = max(nudge.get(k, 0.0), v)
-            nudge.setdefault("leaves", []).append(leaf)
-        else:
-            ref = state
-        del trainer
-    del ref
-    log(f"phase 13: the plain step 1 at B={PARALLEL_BATCH} when the "
-        f"coefficients move by half an fp32 ulp (the larger of {NUDGE_DRAWS} "
-        f"draws): gradients worst leaf {nudge['grad_worst']!r} "
-        f"({nudge['leaves']}), rel-L2 {nudge['grad_l2']!r}; parameters share "
-        f"more than lr/100 apart {nudge['share']!r}, rel-L2 of the update "
-        f"{nudge['param_l2']!r}; the mesh runs' bars are {FP32_NUDGE_RATIO} "
-        f"times these")
-    spec = {"batches": batches, "eps": eps, "beta": beta, "nudge": nudge,
+    spec = {"batches": batches, "eps": eps, "beta": beta,
             "model": model, "device": str(device), "tp_min_dim": tp_min_dim,
             "card": card() if device.type == "cuda" else "cpu"}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_scratch")
@@ -2913,13 +2939,696 @@ def parallel_phase(device, model=None, tp_min_dim=2048):
     return launches
 
 
+# Phase 14: steps_per_execution on the card, the train step replayed as a
+# CUDA graph (Trainer.train_multi_step).
+CAPTURE_STEPS, CAPTURE_K = 8, 4   # (a): 8 steps, eager twice, then 2 x K=4
+CAPTURE_TIMED = 8                 # (c): timed steps a mode
+CAPTURE_PROFILED = 2              # (c): profiled steps a mode
+CAPTURE_BATCHES = (32, 128)       # (c)
+CAPTURE_CLI_BATCHES = 10          # (d): two groups of 4 and a tail of 2
+CAPTURE_EAGER_RUNS = 5            # (a), (e), (f): eager runs, the spread
+CAPTURE_ONE_STATE_RUNS = 3        # eager steps from one state, a replay's
+# captured steps against eager ones, per group of entries: within this many
+# times the largest relative distance between two eager runs (the eager
+# steps are not deterministic on the card; see _against_eager), or within
+# CAPTURE_FLOOR: a scalar that several eager runs happen to round alike can
+# still differ by an ulp in another (grad_norm 7.6e-8 apart one step from
+# one state, PERF.md section 6), while a fault moves the update by 1e-1 or
+# more (the controls: a count frozen at the capture 0.117-0.173, a skipped
+# replay 1)
+CAPTURE_SPREAD = 2.0
+CAPTURE_FLOOR = 1e-5
+# host API calls that start device work, as torch.profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cuGraphLaunch", "cudaMemcpy", "cuMemcpy", "cudaMemset",
+                     "cuMemset")
+
+
+def _snapshot(trainer, metrics):
+    """The trainer's metrics ({name: (steps,)}) and its whole state, copied
+    where they lie (on the card: comparing 1.1 GB of state in float64 on
+    the host took most of this phase's time), one tensor a key, prefixed
+    by group: metric.<name>, first.<loss> (the first step's), param.,
+    stat. (BatchNorm statistics), mu. and nu. (the Adam moments, once
+    made), acc. (the accumulated gradient, where one is held), and count,
+    mini_step, generator and step."""
+    sd = trainer.state_dict()
+    opt = sd["optimizer"]
+    inner = opt.get("inner", opt)
+    params = dict(trainer.model.named_parameters())
+    out = {f"metric.{k}": v.clone() for k, v in metrics.items()}
+    # the first step's losses: one forward from one state, deterministic
+    out.update({f"first.{k}": v[:1].clone() for k, v in metrics.items()
+                if k != "grad_norm"})
+    out.update({f"{'param' if k in params else 'stat'}.{k}":
+                v.detach().clone() for k, v in sd["model"].items()})
+    for group, tensors in (("mu", inner["mu"]), ("nu", inner["nu"]),
+                           ("acc", opt.get("acc") or ())):
+        out.update({f"{group}.{name}": t.detach().clone()
+                    for name, t in zip(params, tensors) if t is not None})
+    out["count"] = torch.tensor(inner["count"])
+    out["mini_step"] = torch.tensor(opt.get("mini_step", 0))
+    out["generator"] = sd["generator"].clone()
+    out["step"] = torch.tensor(sd["step"])
+    return out
+
+
+def _group(key):
+    return key if key.startswith("metric.") else key.split(".")[0]
+
+
+# the groups of the trainer's state: each is measured against its move from
+# the start state (the update), the metrics against their own size
+_STATE = ("param", "stat", "mu", "nu", "acc")
+
+
+def _distance(a, b, start=None, groups=None):
+    """Per group of entries (`_group`; only `groups` if given), the relative
+    L2 distance of snapshot a from b: ||a - b|| over b's move from `start`
+    in the state's groups (an entry absent from start moved from 0), over
+    ||b|| in the others."""
+    num, den = Counter(), Counter()
+    for k in b:
+        g = _group(k)
+        if groups is not None and g not in groups:
+            continue
+        y = b[k].double()
+        x = a[k].double() if k in a else torch.zeros_like(y)   # none held
+        num[g] += (x - y).square().sum().item()
+        ref = (y - start[k].double() if start is not None and g in _STATE
+               and k in start else y)
+        den[g] += ref.square().sum().item()
+    return {g: (num[g] / den[g]) ** 0.5 if den[g] else num[g] ** 0.5
+            for g in den}
+
+
+def _leaves(a, b, start, group, n=4):
+    """The n entries of `group` that hold most of ||a - b||^2: (name, their
+    share of it, their own distance over their move from start, their
+    share of the group's squared move), rounded for the log."""
+    d = {k: (a[k].double() - b[k].double()).square().sum().item()
+         for k in b if _group(k) == group}
+    w = {k: (b[k].double() - (start[k].double() if k in start else 0))
+         .square().sum().item() for k in d}
+    total, moved = sum(d.values()) or 1.0, sum(w.values()) or 1.0
+    return [(k.split(".", 1)[1], f"{d[k] / total:.3g}",
+             f"{(d[k] / w[k]) ** 0.5 if w[k] else float('inf'):.3g}",
+             f"{w[k] / moved:.3g}")
+            for k in sorted(d, key=d.get, reverse=True)[:n]]
+
+
+def _first_step_apart(first, start, lr, label):
+    """Log how far E1's and E2's parameters are apart after their first
+    step: relative to that step's update, and the share of elements more
+    than lr/100 and more than lr apart (an Adam step at count 1 moves each
+    element by lr times the sign of its gradient)."""
+    a, b = first
+    n = far = flipped = 0
+    num = den = 0.0
+    for k in b:
+        d = (a[k].double() - b[k].double()).abs()
+        n += d.numel()
+        far += (d > lr / 100).sum().item()
+        flipped += (d > lr).sum().item()
+        num += d.square().sum().item()
+        den += (b[k].double() - start[f"param.{k}"].double()).square().sum(
+            ).item()
+    rel = (num / den) ** 0.5 if den else num ** 0.5
+    log(f"{label}: E1 and E2 after the first step: parameters {rel!r} of "
+        f"the update apart, {far / n!r} of the elements more than lr/100 "
+        f"apart and {flipped / n!r} more than lr, of {n}")
+
+
+def _eager_and_captured(fresh, batches, beta, k, label):
+    """The same steps from one state CAPTURE_EAGER_RUNS times eagerly (E1,
+    E2, ...) and once as groups of k through train_multi_step (C; its
+    first group runs eagerly and is captured, the rest replay), and two
+    controls, runs that a faulty capture would give: E1 without its last
+    step (a replay skipped), and an eager run whose bias corrections stay
+    at the count the graph was captured at (a count frozen on the host).
+    Logs how far E1 and E2 are apart after their first step. Returns ({run:
+    snapshot}, the start's snapshot, the C trainer, the kernel entries C
+    launched, {control: snapshot})."""
+    runs, controls, start, first = {}, {}, None, []
+    for i in range(CAPTURE_EAGER_RUNS):
+        t = fresh()
+        if start is None:
+            start = _snapshot(t, {})
+        steps = []
+        for j, b in enumerate(batches):
+            if i == 0 and j == len(batches) - 1:
+                controls["E1 without its last step"] = _snapshot(t, {})
+            steps.append(t.train_step(b, beta))
+            if j == 0 and i < 2:
+                first.append({k: p.detach().clone()
+                              for k, p in t.model.named_parameters()})
+        runs[f"E{i + 1}"] = _snapshot(t, {m: torch.stack([s[m] for s in steps])
+                                          for m in steps[0]})
+    _first_step_apart(first, start, t.config.lr, label)
+    del first
+    t = fresh()
+    inner = getattr(t.optimizer, "inner", t.optimizer)
+    for j, b in enumerate(batches):
+        if j == k:
+            frozen = int(inner.count)
+        if j >= k:
+            inner.count.fill_(frozen)
+        t.train_step(b, beta)
+    controls["bias corrections at the capture's count"] = _snapshot(t, {})
+    t = fresh()
+    before = _entry_counts()
+    groups = [t.train_multi_step(_stack(batches[i:i + k]), beta)
+              for i in range(0, len(batches), k)]
+    torch.cuda.synchronize()
+    launched = dict(_entry_counts() - before)
+    runs["C"] = _snapshot(t, {m: torch.cat([g[m] for g in groups])
+                              for m in groups[0]})
+    return runs, start, t, launched, controls
+
+
+# entries the same on every run from one state by construction: the
+# count, the micro-step, the generator state, the step and the first
+# step's losses (one train-mode forward, which is deterministic; its
+# backward is not)
+_EXACT = ("count", "mini_step", "generator", "step", "first.")
+
+
+def _against_eager(runs, label, start, controls=None):
+    """C against the eager runs from `start`. The eager steps on the card
+    are not deterministic (cuDNN's weight gradient and the backward of
+    the reflect pad and of the linear upsample add with atomics), and a
+    trajectory carries a step's difference on, so C is held to the eager
+    runs' spread: bit for bit in the entries that are deterministic by
+    construction (`_EXACT`), and in each group of entries (`_group`; the
+    state's groups measured against their move from start) within
+    CAPTURE_SPREAD times the largest distance between two eager runs, or
+    CAPTURE_FLOOR where that is smaller.
+    Logs how the eager runs drift apart step by step (grad_norm) and which
+    leaves hold the E1-E2 distance of the parameters and first moments.
+    Each control (a run a faulty capture would give) is measured against
+    the same bar in the state's groups. Returns (the failures, {control:
+    the groups in which it is over the bar})."""
+    eager = sorted(k for k in runs if k.startswith("E"))
+    e1, c = runs["E1"], runs["C"]
+    exact = [k for k in e1 if k.startswith(_EXACT)]
+    moved = [k for k in exact if not all(torch.equal(r[k], e1[k]) for r in
+                                         [runs[e] for e in eager] + [c])]
+    spread = Counter()
+    for i, a in enumerate(eager):
+        for b in eager[i + 1:]:
+            for g, d in _distance(runs[a], runs[b], start).items():
+                spread[g] = max(spread[g], d)
+    bar = {g: max(CAPTURE_SPREAD * spread[g], CAPTURE_FLOOR) for g in spread}
+    apart = _distance(c, e1, start)
+    over = {g: (apart[g], spread[g]) for g in apart if apart[g] > bar[g]}
+    norms = torch.stack([runs[e]["metric.grad_norm"].double() for e in eager])
+    drift = ((norms.max(0).values - norms.min(0).values)
+             / norms.min(0).values).tolist()
+    log(f"{label}: {len(e1)} entries; the {len(exact)} exact ones differ "
+        f"in {moved}; per group, relative distance of C from E1 against "
+        f"the largest between {len(eager)} eager runs (state groups over "
+        f"their move from the start): " + ", ".join(
+            f"{g} {apart[g]!r} / {spread[g]!r}" for g in sorted(apart))
+        + f"; total_loss E1 {e1['metric.total_loss'].tolist()}, C "
+        f"{c['metric.total_loss'].tolist()}; eager grad_norm spread "
+        f"(max - min) / min by step {drift}")
+    for g in ("param", "mu"):
+        if spread.get(g):
+            log(f"{label}: E1-E2 distance in {g}, leaves holding most (name, "
+                f"share of it, own distance over own move, share of the "
+                f"move): {_leaves(runs['E2'], e1, start, g)}")
+    failed = [f"{label}: runs differ in exact entries {moved}"] if moved else []
+    if over:
+        failed.append(f"{label}: C further from E1 than {CAPTURE_SPREAD} "
+                      f"times the eager spread (or {CAPTURE_FLOOR}) in {over}")
+    rejected = {}
+    for name, x in (controls or {}).items():
+        d = _distance(x, e1, start, _STATE)
+        rejected[name] = sorted(g for g in d if d[g] > bar[g])
+        log(f"{label}: control '{name}' from E1: " + ", ".join(
+            f"{g} {d[g]!r}" for g in sorted(d))
+            + f"; over the bar in {rejected[name]}")
+    return failed, rejected
+
+
+def _replay_against_eager(t, batch, beta, label, frozen):
+    """One replay of the trainer's captured step against eager steps from
+    the same state (the trainer's now): bit for bit in the exact entries,
+    and each state group's update and each metric within CAPTURE_SPREAD
+    times the largest distance between CAPTURE_ONE_STATE_RUNS eager steps,
+    which differ only by the backward's atomics, or CAPTURE_FLOOR. Controls, steps a faulty
+    capture would take, must each be over that bar in some group: no step
+    (a replay skipped), and where the step updates the parameters, an
+    eager step with its bias corrections at `frozen`, the count the graph
+    was captured at (a count frozen on the host). The state is put back
+    after. Returns the failures."""
+    opt = t.optimizer
+    inner = getattr(opt, "inner", opt)
+    params, bufs = list(t.model.parameters()), list(t.model.buffers())
+    held = (params + bufs + [v for p in params for v in inner.state[p].values()]
+            + list(getattr(opt, "acc", None) or ()))
+    saved = [x.detach().clone() for x in held]
+    count, gen, step = inner.count.clone(), t.generator.get_state(), t.step
+    micro = getattr(opt, "mini_step", None)
+
+    def restore():
+        with torch.no_grad():
+            for x, v in zip(held, saved):
+                x.copy_(v)
+            inner.count.copy_(count)
+        if micro is not None:
+            opt.mini_step = micro
+        t.generator.set_state(gen)
+        t.step = step
+
+    start = _snapshot(t, {})
+    runs = {}
+    for i in range(CAPTURE_ONE_STATE_RUNS):
+        restore()
+        m = t.train_step(batch, beta)
+        runs[f"E{i + 1}"] = _snapshot(t, {k: v.reshape(1)
+                                          for k, v in m.items()})
+    restore()
+    replays = sum(g.replays for g in t.graphs.values())
+    runs["C"] = _snapshot(t, t.train_multi_step(_stack([batch]), beta))
+    replays = sum(g.replays for g in t.graphs.values()) - replays
+    controls = {"no step": start}
+    if micro is None or micro == opt.every_k - 1:
+        restore()
+        inner.count.fill_(frozen)
+        t.train_step(batch, beta)
+        controls[f"bias corrections at count {frozen + 1}"] = _snapshot(t, {})
+    restore()
+    failed, rejected = _against_eager(runs, label, start, controls)
+    failed += [f"{label}: the bar does not reject the control '{name}'"
+               for name, groups in rejected.items() if not groups]
+    if replays != 1:
+        failed.append(f"{label}: {replays} replays, expected 1")
+    return failed
+
+
+def _profiled(fn, steps):
+    """fn() under torch.profiler: (device busy ms a step, the device events,
+    host calls that start device work, a step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_teb_tpu_torch.profile_train import _busy_us, _kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = _kernels(prof)
+    host = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.name.startswith(HOST_LAUNCH_CALLS))
+    return _busy_us(kernels) / 1e3 / steps, kernels, host / steps
+
+
+def _coefficient_batches(frontend, gen, n, b, raw_len, device):
+    """n seeded batches of B raw windows through the frontend on the card,
+    as train_step takes them."""
+    out = []
+    for _ in range(n):
+        x = torch.randn((2, b, N), generator=gen, device=device)
+        coeffs = frontend(x[0], x[1])
+        out.append(dict(zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs),
+                        fhr=torch.randn((b, raw_len), generator=gen,
+                                        device=device)))
+    return out
+
+
+def _stack(batches):
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def _captured(trainers):
+    """The kernel launches that the trainers' graph replays made, by entry
+    point."""
+    n = Counter()
+    for t in trainers:
+        for g in t.graphs.values():
+            for (_, key), k in g.launches.items():
+                if key.startswith("wavefront_"):
+                    n[key] += k * g.replays
+    return n
+
+
+def _captured_parts(trainer, batch):
+    """The step's deterministic parts, each captured alone as a CUDA graph
+    and replayed from the state its eager run started from: the train-mode
+    forward and the losses (the same noise from the trainer's generator),
+    and the optimizer step on fixed gradients. Returns {part: the outputs,
+    parameters, moments or count that differ from the eager run}."""
+    from vae_teb_tpu_torch.models import compute_loss
+    model, opt, gen = trainer.model, trainer.optimizer, trainer.generator
+    params, bufs = list(model.parameters()), list(model.buffers())
+    saved = ([p.detach().clone() for p in params], [b.clone() for b in bufs],
+             [{k: v.clone() for k, v in opt.state[p].items()}
+              for p in params], opt.count.clone(), gen.get_state())
+    y_st, y_ph, x_ph, y_raw = (batch[k] for k in ("fhr_st", "fhr_ph",
+                                                  "fhr_up_ph", "fhr"))
+    g = torch.Generator(device=y_st.device).manual_seed(3)
+    grads = [1e-2 * torch.randn(p.shape, generator=g, device=p.device)
+             for p in params]
+    for p in params:
+        p.grad = None
+
+    def restore():
+        with torch.no_grad():
+            for p, v in zip(params, saved[0]):
+                p.copy_(v)
+            for b, v in zip(bufs, saved[1]):
+                b.copy_(v)
+            for p, st in zip(params, saved[2]):
+                for k, v in st.items():
+                    opt.state[p][k].copy_(v)
+            opt.count.copy_(saved[3])
+        gen.set_state(saved[4])
+        for p, gr in zip(params, grads):   # in place: a graph reads them
+            if p.grad is None:
+                p.grad = gr.clone()
+            else:
+                p.grad.copy_(gr)
+
+    @torch.no_grad()
+    def forward():
+        out = model.train()(y_st, y_ph, x_ph, deterministic=False,
+                            generator=gen)
+        return dict(compute_loss(out, y_st, y_ph, y_raw, beta=trainer._beta),
+                    **out)
+
+    def optimizer():
+        opt.step()
+        return dict(enumerate(params), count=opt.count,
+                    **{f"mu{i}": opt.state[p]["mu"]
+                       for i, p in enumerate(params)})
+
+    differ = {}
+    for name, part in (("forward", forward), ("optimizer", optimizer)):
+        restore()
+        eager = {k: v.clone() for k, v in part().items()}
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        with torch.cuda.graph(graph):
+            got = part()
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+        differ[name] = [k for k in eager if not torch.equal(got[k], eager[k])]
+    restore()
+    return differ
+
+
+def capture_phase(device):
+    """Phase 14: `Trainer.train_multi_step` on the card. Returns the kernel
+    launches that graph replays made, by entry point."""
+    import copy
+    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
+                                   WindowFrontend, init_parameters,
+                                   production_frontend)
+    failed = []
+    frontend = WindowFrontend(production_frontend(device))
+    gen = torch.Generator(device=device).manual_seed(14)
+    log(f"capture: torch {torch.__version__}, CUDAGraph."
+        f"register_generator_state "
+        f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')}; "
+        f"card {card()}")
+    seeded = init_parameters(SeqVaeTeb(), seed=INIT_SEED)
+    raw_len = seeded.decoder.raw_len
+    cfg = TrainerConfig(steps_per_execution=CAPTURE_K)
+    beta = 1e-5
+    trainers, captured = [], Counter()
+
+    def drop():   # count the trainers' replayed launches, then free them
+        captured.update(_captured(trainers))
+        del trainers[:]
+        torch.cuda.empty_cache()
+
+    def fresh(config=cfg, model=seeded):   # the seeded state, step 0
+        t = Trainer(copy.deepcopy(model), config, device)
+        trainers.append(t)
+        return t
+
+    t_part = time.perf_counter()
+    # (a) eight eager steps five times, then two groups of K=4 from one state
+    batches = _coefficient_batches(frontend, gen, CAPTURE_STEPS, 32, raw_len,
+                                   device)
+    label = "capture (a) B=32 fp32"
+    runs, start, t, launched, controls = _eager_and_captured(
+        fresh, batches, beta, CAPTURE_K, label)
+    graphs = list(t.graphs.values())
+    failed += _against_eager(runs, label, start, controls)[0]
+    del runs, start, controls
+    log(f"capture (a): graphs {[(g.replays, dict(g.launches)) for g in graphs]}"
+        f"; step {t.step}, count {int(t.optimizer.count)}")
+    parts = _captured_parts(t, batches[-1])
+    log(f"capture (a): the step's deterministic parts captured alone and "
+        f"replayed from the eager run's state, entries that differ: {parts}")
+    if any(parts.values()):
+        failed.append(f"(a) captured parts differ from eager: {parts}")
+    if (len(graphs) != 1 or graphs[0].replays != CAPTURE_STEPS - CAPTURE_K
+            or t.step != CAPTURE_STEPS):
+        failed.append(f"(a) {len(graphs)} graphs, replays "
+                      f"{[g.replays for g in graphs]}, step {t.step}")
+    failed += _replay_against_eager(t, batches[0], beta, "capture (a) one "
+                                    "replay from C's state", CAPTURE_K)
+    # (b) launches: by the counters, and in a profiler window of one replay
+    want = {"wavefront_fwd_res_f32": CAPTURE_STEPS,
+            "wavefront_bwd_f32": CAPTURE_STEPS}
+    log(f"capture (b): kernel entries launched in C {launched} (expected "
+        f"{want})")
+    if launched != want:
+        failed.append(f"(b) C launched {launched}, expected {want}")
+    one = _stack(batches[:1])
+    _, kernels, host_graph = _profiled(
+        lambda: t.train_multi_step(one, beta), 1)
+    seen = {key: sum(f"wavefront_{key}_kernel" in e.name for e in kernels)
+            for key in ("fwd", "bwd")}
+    _, eager_kernels, host_eager = _profiled(
+        lambda: t.train_step(batches[0], beta), 1)
+    log(f"capture (b): one replay under torch.profiler: {len(kernels)} "
+        f"device events, wavefront kernels {seen} (expected one each); host "
+        f"calls starting device work {host_graph!r} a captured step against "
+        f"{host_eager!r} an eager step ({len(eager_kernels)} device events)")
+    if seen != {"fwd": 1, "bwd": 1}:
+        failed.append(f"(b) the profiler saw the wavefront kernels {seen} "
+                      f"times in one replay")
+    del t, graphs   # (c)'s peak memory holds (c)'s trainer alone
+    drop()
+    log(f"capture (a)-(b) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (c) ms a step, idle share and peak memory, eager against captured
+    for precision in ("fp32", "bf16"):
+        for b in CAPTURE_BATCHES:
+            pcfg = TrainerConfig(steps_per_execution=CAPTURE_TIMED,
+                                 precision=precision, moment_dtype=precision)
+            if precision == "fp32":
+                tr = fresh(pcfg)
+            else:   # the seeded weights under the bf16 policy
+                model = SeqVaeTeb(dtype=pcfg.model_dtype())
+                model.load_state_dict(seeded.state_dict())
+                tr = fresh(pcfg, model)
+            batch = _coefficient_batches(frontend, gen, 1, b, raw_len,
+                                         device)[0]
+            row = {}
+            tr.train_step(batch, beta)                 # warm-up
+            t0 = time.perf_counter()
+            tr.train_multi_step(_stack([batch]), beta)  # eager, then capture
+            torch.cuda.synchronize()
+            row["warm_up_and_capture_s"] = time.perf_counter() - t0
+            for mode in ("eager", "captured"):
+                def run(n):
+                    if mode == "eager":
+                        return [tr.train_step(batch, beta) for _ in range(n)]
+                    return tr.train_multi_step(_stack([batch] * n), beta)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                run(CAPTURE_TIMED)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / CAPTURE_TIMED
+                peak = torch.cuda.max_memory_allocated(device)
+                busy, events, host = _profiled(lambda: run(CAPTURE_PROFILED),
+                                               CAPTURE_PROFILED)
+                row[mode] = {"ms_a_step": ms, "device_busy_ms": busy,
+                             "idle_share": 1 - busy / ms,
+                             "device_events_a_step":
+                                 len(events) / CAPTURE_PROFILED,
+                             "host_launch_calls_a_step": host,
+                             "peak_memory_bytes": peak}
+            log(f"capture (c) {precision} B={b}: " + json.dumps(row)
+                + f" ({card()})")
+            if not row["captured"]["ms_a_step"] > 0:
+                failed.append(f"(c) {precision} B={b}: {row}")
+            del tr
+            drop()
+
+    log(f"capture (c) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    # (d) cli.run_training with steps_per_execution 4 against 1
+    failed += _capture_cli(device, frontend, gen)
+    log(f"capture (d) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (e) H=128: the grid kernels' cooperative launch inside the graph
+    wide = init_parameters(SeqVaeTeb(lstm_hidden_dim=128), seed=INIT_SEED)
+    wb = _coefficient_batches(frontend, gen, 4, 32, raw_len, device)
+    label = "capture (e) SeqVaeTeb(lstm_hidden_dim=128) B=32 fp32"
+    runs, start, t, launched, controls = _eager_and_captured(
+        lambda: fresh(TrainerConfig(steps_per_execution=2), wide), wb, beta,
+        2, label)
+    failed += _against_eager(runs, label, start, controls)[0]
+    del runs, start, controls
+    replays = [g.replays for g in t.graphs.values()]
+    failed += _replay_against_eager(t, wb[0], beta, label + ", one replay "
+                                    "from C's state", 2)
+    want = {"wavefront_grid_fwd_res_f32": 4, "wavefront_grid_bwd_f32": 4}
+    log(f"capture (e): replays {replays}, grid kernel entries launched in C "
+        f"{launched} (expected {want})")
+    if launched != want or replays != [2]:
+        failed.append(f"(e) launched {launched} (expected {want}), replays "
+                      f"{replays}")
+    drop()
+    log(f"capture (e) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (f) accumulation over 2: a graph a micro-step, the micro-step moved on
+    # by the trainer after each replay
+    acfg = TrainerConfig(steps_per_execution=CAPTURE_K,
+                         accumulate_grad_batches=2)
+    label = "capture (f) accumulate_grad_batches=2, K=4, B=32 fp32"
+    runs, start, t, launched, controls = _eager_and_captured(
+        lambda: fresh(acfg), batches, beta, CAPTURE_K, label)
+    failed += _against_eager(runs, label, start, controls)[0]
+    graphs = sorted((micro, g.replays) for (_, micro), g in t.graphs.items())
+    state = {k: int(runs["E1"][k]) for k in ("count", "mini_step", "step")}
+    log(f"capture (f): graphs (micro-step, replays) {graphs}; E1's count, "
+        f"micro-step and step {state}; kernel entries launched in C "
+        f"{launched}")
+    if (graphs != [(0, 2), (1, 2)]
+            or state != {"count": 4, "mini_step": 0, "step": 8}):
+        failed.append(f"(f) graphs {graphs}, state {state}")
+    del runs, start, controls
+    for micro in (0, 1):   # one replay of each micro-step's graph
+        failed += _replay_against_eager(
+            t, batches[micro], beta, f"capture (f) one replay of micro-step "
+            f"{micro} from C's state", 2)
+        t.train_step(batches[micro], beta)
+    del t
+    drop()
+    log(f"capture (f) took {time.perf_counter() - t_part:.1f} s")
+    captured.update(_CAPTURED)
+    if failed:
+        raise AssertionError("capture checks failed:\n" + "\n".join(failed))
+    return captured
+
+
+_CAPTURED = Counter()   # (d)'s replayed launches, by entry point
+
+
+def _capture_cli(device, frontend, gen):
+    """Phase 14 (d): `cli.run_training` on a packed store of
+    CAPTURE_CLI_BATCHES batches of 32 (fp32, device normalization, two
+    epochs) with steps_per_execution 4, against three runs with 1: the
+    history's train metrics no further from the first K=1 run's than
+    CAPTURE_SPREAD times the largest distance between two K=1 runs
+    (relative, per metric and epoch). Returns the failures."""
+    import os
+    import tempfile
+    from vae_teb_tpu_torch import Trainer
+    from vae_teb_tpu_torch.cli import run_training
+    from vae_teb_tpu_torch.data import PackedWindowStore
+    from vae_teb_tpu_torch.train import (DatasetConfig, ModelConfig,
+                                         RunConfig, TrainerConfig)
+    from vae_teb_tpu_torch.utils import setup_logging
+    setup_logging(capture_root=False)
+    parts = {k: [] for k in ("fhr_st", "fhr_ph", "fhr_up_ph", "fhr")}
+    for _ in range(CAPTURE_CLI_BATCHES):
+        x = torch.randn((2, 32, N), generator=gen, device=device)
+        coeffs = frontend(x[0], x[1])
+        for k, c in zip(("fhr_st", "fhr_ph", "fhr_up_ph"), coeffs):
+            parts[k].append(c.transpose(1, 2).cpu().numpy())
+        trim = (N - 16 * coeffs[0].shape[1]) // 2
+        parts["fhr"].append(x[0, :, trim:N - trim].cpu().numpy())
+    arrays = {k: np.ascontiguousarray(np.concatenate(v))
+              for k, v in parts.items()}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_scratch")
+    os.makedirs(root, exist_ok=True)
+    histories, multi = {}, []
+    step_fn = Trainer.train_multi_step
+
+    def spy(self, stacked, beta, eps=None):
+        multi.append(int(stacked["fhr"].shape[0]))
+        return step_fn(self, stacked, beta, eps)
+
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        store = os.path.join(tmp, "train")
+        PackedWindowStore.build(_Windows(arrays), store)
+        stats = _field_stats(arrays)
+        Trainer.train_multi_step = spy
+        try:
+            for name, spe in (("K=1 a", 1), ("K=1 b", 1), ("K=1 c", 1),
+                              ("K=4", 4)):
+                cfg = RunConfig(
+                    tag=f"capture{spe}{name[-1]}",
+                    out_dir_base=os.path.join(tmp, "runs"),
+                    model=ModelConfig(
+                        input_channels=arrays["fhr_up_ph"].shape[1],
+                        n_scattering=arrays["fhr_st"].shape[1],
+                        n_phase=arrays["fhr_ph"].shape[1]),
+                    trainer=TrainerConfig(epochs=2, seed=INIT_SEED,
+                                          steps_per_execution=spe),
+                    dataset=DatasetConfig(train_paths=[store], batch_size=32))
+                trainer = run_training(cfg, device, normalize_stats=stats,
+                                       plot_every=0)
+                histories[name] = trainer.history
+                _CAPTURED.update(_captured([trainer]))
+                del trainer
+        finally:
+            Trainer.train_multi_step = step_fn
+    keys = [k for k in histories["K=4"] if k.startswith("train/")]
+
+    def distance(run, ref):   # the largest relative distance of a metric
+        return max(abs(a / b - 1) for k in keys
+                   for a, b in zip(histories[run][k], histories[ref][k]))
+
+    spread = max(distance(x, y) for x, y in (("K=1 b", "K=1 a"),
+                                             ("K=1 c", "K=1 a"),
+                                             ("K=1 c", "K=1 b")))
+    apart = distance("K=4", "K=1 a")
+    log(f"capture (d) cli.run_training, {CAPTURE_CLI_BATCHES} batches of "
+        f"32, 2 epochs: train_multi_step groups {multi}; train/total_loss "
+        f"by epoch K=4 {histories['K=4']['train/total_loss']}, K=1 "
+        f"{[histories[r]['train/total_loss'] for r in ('K=1 a', 'K=1 b', 'K=1 c')]}"
+        f"; largest relative difference of a train metric: K=4 from the "
+        f"first K=1 run {apart!r}, between two K=1 runs {spread!r}; win/s "
+        f"by epoch K=1 "
+        f"{[histories[r]['windows_per_sec'] for r in ('K=1 a', 'K=1 b', 'K=1 c')]}"
+        f", K=4 "
+        f"{histories['K=4']['windows_per_sec']} (K=4's first epoch holds "
+        f"the eager first group and the capture)")
+    failed = []
+    if multi != [4, 4, 2] * 2:
+        failed.append(f"(d) train_multi_step groups {multi}, expected "
+                      f"[4, 4, 2] an epoch")
+    if apart > CAPTURE_SPREAD * spread:
+        failed.append(f"(d) K=4's history {apart!r} from K=1's, over "
+                      f"{CAPTURE_SPREAD} times K=1's own spread ({spread!r})")
+    return failed
+
+
 def main(argv) -> int:
     kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
     grid_only, parallel_only = argv == ["--grid"], argv == ["--parallel"]
+    capture_only = argv == ["--capture"]
     if argv and not (kernels_only or serve_only or grid_only
-                     or parallel_only):
+                     or parallel_only or capture_only):
         print("usage: chip_smoke.py [--kernels | --serve | --grid | "
-              "--parallel]", file=sys.stderr)
+              "--parallel | --capture]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2955,6 +3664,9 @@ def main(argv) -> int:
     if parallel_only:         # phase 13 alone
         parallel_phase(device)
         return 0
+    if capture_only:          # phase 14 alone
+        capture_phase(device)
+        return 0
     check_residency(device)
 
     kernels = check_kernels(device)
@@ -2971,6 +3683,7 @@ def main(argv) -> int:
     grid_kernels = check_grid_kernels(device)
     variant_launches = variants_phase(device)
     parallel_launches = parallel_phase(device)
+    captured = capture_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -3000,6 +3713,10 @@ def main(argv) -> int:
             "export_launches": n_export,
             "variant_launches": variant_launches.get(
                 bf16_entry.replace("_bf16", "_f32"), 0),
+            # phase 14: launched by replays of captured train steps
+            "captured_launches": {
+                dt: captured.get(bf16_entry.replace("_bf16", f"_{dt}"), 0)
+                for dt in ("f32", "bf16")},
             # phase 13, per world and rank: this entry's fp32 launches
             "parallel_launches": {
                 world: sum(n for e, n in seen.items() if e.split(" B=")[0]
@@ -3022,6 +3739,8 @@ def main(argv) -> int:
             "source": f"vae_teb_tpu_torch/kernels/{src}",
             "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
             "launches": variant_launches.get(f"{entry}_f32", 0),
+            "captured_launches": {dt: captured.get(f"{entry}_{dt}", 0)
+                                  for dt in ("f32", "bf16")},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,

@@ -147,6 +147,40 @@ def test_reader_filters_and_trim_check_match_jax(small_dataset):
             cls(path, epoch_min=1e12)
 
 
+def test_get_the_lists_matches_jax(tmp_path):
+    """get_the_lists on two files, given in reverse order and sub-selected
+    by an epoch filter, returns what the JAX package's method returns: the
+    GUIDs decoded, the epochs and the targets, file by file in index order,
+    equal bit for bit."""
+    import h5py
+    paths = []
+    for n, count in enumerate((6, 5)):
+        path = str(tmp_path / f"part{n}.h5")
+        r = np.random.default_rng(n)
+        with h5py.File(path, "w") as f:
+            f["guid"] = np.array([f"rec{n}-{i}".encode() for i in range(count)])
+            f["epoch"] = r.uniform(0.0, 10.0, count)
+            f["target"] = r.integers(0, 3, (count, 4)).astype(np.int32)
+            f["cs_label"] = r.integers(0, 2, count).astype(bool)
+            f["bg_label"] = r.integers(0, 2, count).astype(bool)
+        paths.append(path)
+    kw = dict(epoch_min=2.0, cache_size=0)
+    port = CombinedHDF5Dataset(paths[::-1], **kw)
+    ref = JaxDataset(paths[::-1], **kw)
+    try:
+        assert port.index_map == ref.index_map
+        assert 0 < len(port) < 11
+        (g, e, t), (wg, we, wt) = port.get_the_lists(), ref.get_the_lists()
+        assert g == wg and all(isinstance(x, str) for x in g)
+        assert g[0].startswith("rec1-")
+        np.testing.assert_array_equal(np.asarray(e), np.asarray(we))
+        np.testing.assert_array_equal(np.asarray(t), np.asarray(wt))
+        assert len(g) == len(e) == len(t) == len(port)
+    finally:
+        port.close()
+        ref.close()
+
+
 @pytest.mark.parametrize("builder", ["jax", "port"])
 def test_packed_store_reads_in_both_packages(small_dataset, tmp_path,
                                              builder):

@@ -228,6 +228,59 @@ def test_write_callback_gets_the_files_windows(built):
                 np.testing.assert_array_equal(got, want, err_msg=k)
 
 
+def _build_coefficients():
+    """The fixture's exact build again, its windows handed to `write`: the
+    coefficients by field, and the raw windows."""
+    batches = []
+    td.build_dataset(None, n_records=3, windows_per_record=3,
+                     len_signal=WINDOW, seed=0, device="cpu",
+                     write=batches.append, **CFG)
+    return {k: np.concatenate([np.asarray(b[k]) for b in batches])
+            for k in list(COEFF_BARS) + ["fhr", "up"]}
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+def test_cpu_builds_at_other_thread_counts(built, threads):
+    """How far CPU builds of the frontend's coefficients move with torch's
+    thread count (MKL's FFT and GEMM take other code paths): the build
+    twice in this process at `threads`, after the fixture's builds, against
+    each other and against the fixture's file built at 2 threads; and each
+    phase family's distance from the float64 oracle (chip_smoke's
+    fp64_phase_oracle). All within COEFF_BARS; the distances are printed
+    (`-s`): the measurement that ROADMAP.md's Queue 3 cites for the phase
+    family's one unexplained 2.8e-3 move in a tier-1 run."""
+    from chip_smoke import fp64_phase_oracle
+    from vae_teb_tpu_torch.data.synthetic import _selection
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        first, again = _build_coefficients(), _build_coefficients()
+    finally:
+        torch.set_num_threads(before)
+    with h5py.File(built["dir"] / "torch_exact.h5", "r") as f:
+        fixture = {k: f[k][()] for k in COEFF_BARS}
+    sc = PhaseScattering1D(**CFG, shape=WINDOW, max_order=1, device="cpu")
+    phase_idx, cross_idx = _selection(sc)
+    x64 = np.stack([first["fhr"], first["up"]], 1).astype(np.float64)
+    oracle = {"fhr_ph": fp64_phase_oracle(sc, x64, phase_idx, False),
+              "fhr_up_ph": fp64_phase_oracle(sc, x64, cross_idx, True)}
+    seen = {}
+    for k, (kind, bar) in COEFF_BARS.items():
+        row = {"again, max/max": float(_coeff_err(again[k], first[k], "max")),
+               "2 threads, max/max": float(_coeff_err(fixture[k], first[k],
+                                                      "max")),
+               "2 threads, elements apart": float(
+                   (fixture[k] != first[k]).mean())}
+        assert _coeff_err(again[k], first[k], kind) < bar, k
+        assert _coeff_err(first[k], fixture[k], kind) < bar, k
+        if k in oracle:
+            row["oracle rel-L2"] = float(_coeff_err(first[k], oracle[k],
+                                                    "l2"))
+            assert row["oracle rel-L2"] < bar, k
+        seen[k] = row
+    print(f"ETL build at {threads} threads: {seen}")
+
+
 class _Faulting:
     """A transform that raises `fault` on the calls numbered in `fail_on`
     (two calls a batch: the phase family, then the cross family)."""

@@ -399,12 +399,20 @@ def test_callbacks_fire_and_failures_are_isolated(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """steps_per_execution > 1 raises, naming its ROADMAP item; nothing runs
-    a different configuration silently. The multi-device knobs are ported:
-    tp_min_dim without a mesh is read by nothing and the one-device
-    trainer runs as before (tests/test_torch_parallel.py drives meshes)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        Trainer(_model(), TrainerConfig(steps_per_execution=2), device="cpu")
+    """Nothing runs a different configuration silently, and what was once
+    refused here is ported: steps_per_execution=2 builds a CPU trainer that
+    runs a group of two steps (a loop of train_step on the CPU; the card
+    replays a CUDA graph, tests/test_torch_capture.py), and the
+    multi-device knobs: tp_min_dim without a mesh is read by nothing and
+    the one-device trainer runs as before (tests/test_torch_parallel.py
+    drives meshes)."""
+    trainer = Trainer(_model(), TrainerConfig(steps_per_execution=2),
+                      device="cpu")
+    got = trainer.train_multi_step(
+        {k: np.stack([_batch(1)[k], _batch(2)[k]]) for k in FIELDS}, 1e-5)
+    assert trainer.step == 2 and set(got) >= {"total_loss", "grad_norm"}
+    assert all(v.shape == (2,) and torch.isfinite(v).all()
+               for v in got.values())
     trainer = Trainer(_model(), TrainerConfig(tp_min_dim=256), device="cpu")
     assert trainer.mesh is None and trainer.runner is None
 

@@ -419,8 +419,9 @@ def test_train_steps_match_jax_trainer(small_pair, precision):
                           dtype=jnp.bfloat16)
     cfg = dict(seed=4 if bf16 else 3, precision=precision,
                moment_dtype=precision, lr=1e-3 if bf16 else 1e-4)
-    jt = JaxTrainer(jm, JaxTrainerConfig(**cfg, prefetch=0),
-                    mesh=data_parallel_mesh(devices=jax.devices("cpu")[:1]))
+    jt = (JaxTrainer(jm, JaxTrainerConfig(**cfg, prefetch=0),
+                     mesh=data_parallel_mesh(devices=jax.devices("cpu")[:1]))
+          if bf16 else _jax_trainer(jm, cfg))
     batches = ([_batch(30)] * 4 if bf16
                else [_batch(30 + 10 * i) for i in range(3)])
     state = TrainState(step=jnp.zeros((), jnp.int32),
@@ -466,19 +467,120 @@ def test_train_steps_match_jax_trainer(small_pair, precision):
         assert all(np.isfinite(v.item()) for v in got.values())
         assert totals[-1][0] < totals[0][0] and totals[-1][1] < totals[0][1]
         return
+    _assert_fp32_state_close(model, state, variables)
+
+
+def _param_distance(got, want, start):
+    """(share of elements more than lr / 100 apart, relative L2 of the
+    difference over want's update from start) of two flax param trees."""
     lr = TrainerConfig().lr
-    named = dict(model.named_parameters())
     n = far = num = den = 0
-    for (path, want), (_, start) in zip(_flat(state.params),
-                                        _flat(variables["params"])):
-        got = named[torch_key(path)].detach().numpy()
-        want = to_torch_layout(path[-1], want)
-        d = got - want
+    for (_, a), (_, b), (_, s0) in zip(_flat(got), _flat(want), _flat(start)):
+        d = a - b
         n += d.size
         far += int((np.abs(d) > lr / 100).sum())
         num += float((d * d).sum())
-        den += float(((want - to_torch_layout(path[-1], start)) ** 2).sum())
-    assert far / n <= 2e-2 and (num / den) ** 0.5 <= 2e-2
+        den += float(((b - s0) ** 2).sum())
+    return far / n, (num / den) ** 0.5
+
+
+def _port_params(model, like):
+    """The module's parameters as a flax tree shaped as `like`."""
+    named = dict(model.named_parameters())
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: to_torch_layout(path[-1].key, named[torch_key(
+            tuple(p.key for p in path))].detach().numpy()), like)
+
+
+def _assert_fp32_state_close(model, state, variables):
+    """The fp32 trajectory bars of test_train_steps_match_jax_trainer on the
+    state after the steps: the share of parameter elements more than lr /
+    100 apart <= 2e-2 and the relative L2 of the difference over the update
+    <= 2e-2; running statistics within 1e-4 of the leaf's largest entry."""
+    far, l2 = _param_distance(_port_params(model, state.params), state.params,
+                              variables["params"])
+    assert far <= 2e-2 and l2 <= 2e-2
+    _assert_tree_matches(model, state.batch_stats, "buffer", 1e-4,
+                         "batch_stats")
+
+
+_JAX_TRAINERS = {}
+
+
+def _jax_trainer(jm, cfg):
+    """The JAX Trainer of an fp32 config on the one-device CPU mesh, one per
+    config and process, so the tests that share it compile its per-step
+    program once."""
+    key = tuple(sorted(cfg.items()))
+    if key not in _JAX_TRAINERS:
+        _JAX_TRAINERS[key] = JaxTrainer(
+            jm, JaxTrainerConfig(**cfg, prefetch=0),
+            mesh=data_parallel_mesh(devices=jax.devices("cpu")[:1]))
+    return _JAX_TRAINERS[key]
+
+
+def test_train_multi_step_matches_jax_trainer(small_pair):
+    """Trainer.train_multi_step over a (3, B, ...) stack of the three batches
+    of test_train_steps_match_jax_trainer's fp32 case, from the same weights
+    and seed, against the JAX Trainer's train_multi_step (one lax.scan
+    dispatch of the step on the one-device mesh, default lr 1e-4), with the
+    JAX noise of each step (the scan splits the state's key as the per-step
+    program does, so each draw is replayed from the key chain).
+
+    That test's bars: every loss at every step rtol 1e-4, grad_norm rtol
+    1e-4 at step 1 and 1e-2 after it; the step count 3 on both sides. The
+    state after the three steps is held at that test's bars (share of
+    parameter elements more than lr / 100 apart <= 2e-2, relative L2 of
+    the difference over the update <= 2e-2, running statistics within 1e-4
+    of the leaf's largest entry) against the JAX per-step program's
+    trajectory (its three train_step calls). Against the scan, whose third
+    step meets a ReLU kink on the other side from JAX's own per-step
+    program (grad_norm 80.43 against 80.90; the two JAX programs' states
+    are 22% of elements and 9.5e-3 relative L2 apart), the port's state
+    is held to no further from the scan than the JAX per-step program is,
+    plus those bars (measured: 21.8% and 9.7e-3), and the running
+    statistics within 1e-4."""
+    jm, variables = small_pair
+    cfg = dict(seed=3, precision="fp32", moment_dtype="fp32", lr=1e-4)
+    jt = _jax_trainer(jm, cfg)
+    batches = [_batch(30 + 10 * i) for i in range(3)]
+
+    def start():
+        return TrainState(step=jnp.zeros((), jnp.int32),
+                          params=variables["params"],
+                          batch_stats=variables["batch_stats"],
+                          opt_state=jt.tx.init(variables["params"]),
+                          rng=jax.random.PRNGKey(cfg["seed"]))
+
+    rng, eps = start().rng, []
+    for _ in batches:
+        rng, key = jax.random.split(rng)
+        eps.append(_jax_eps(jm, variables, key, (B, S, 32)))
+    stacked = {k: np.stack([b[k] for b in batches]) for k in FIELDS}
+    model = load_flax_variables(SeqVaeTeb(**SMALL, seq_len=S), variables)
+    trainer = Trainer(model, TrainerConfig(**cfg, steps_per_execution=3),
+                      device="cpu")
+    state, want = jt.train_multi_step(start(), stacked, 1e-5)
+    per_step = start()
+    for batch in batches:
+        per_step, _ = jt.train_step(per_step, batch, 1e-5)
+    got = trainer.train_multi_step(stacked, 1e-5,
+                                   eps=torch.tensor(np.stack(eps)))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == np.shape(want[k]) == (3,)
+        for step in range(3):
+            rtol = 1e-2 if k == "grad_norm" and step else 1e-4
+            np.testing.assert_allclose(got[k][step].item(),
+                                       float(want[k][step]), rtol=rtol,
+                                       err_msg=f"{k}, step {step}")
+    assert int(state.step) == trainer.step == 3
+    _assert_fp32_state_close(model, per_step, variables)
+    port = _port_params(model, state.params)
+    far, l2 = _param_distance(port, state.params, variables["params"])
+    jax_far, jax_l2 = _param_distance(per_step.params, state.params,
+                                      variables["params"])
+    assert far <= jax_far + 2e-2 and l2 <= jax_l2 + 2e-2
     _assert_tree_matches(model, state.batch_stats, "buffer", 1e-4,
                          "batch_stats")
 

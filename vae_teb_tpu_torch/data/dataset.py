@@ -227,6 +227,24 @@ class CombinedHDF5Dataset:
                 self._cache[idx] = out
         return out
 
+    def get_the_lists(self) -> Tuple[List[str], list, list]:
+        """GUIDs, epochs and targets of every indexed sample, read in bulk
+        per file: the files in the order they first appear in `index_map`,
+        each file's samples in index order (the JAX package's
+        `get_the_lists`)."""
+        guids, epochs, targets = [], [], []
+        byfile: Dict[int, List[int]] = {}
+        for fi, si in self.index_map:
+            byfile.setdefault(fi, []).append(si)
+        for fi, sis in byfile.items():
+            f = self._open(fi)
+            sis = sorted(sis)
+            guids.extend(g.decode() if isinstance(g, bytes) else str(g)
+                         for g in f["guid"][sis])
+            epochs.extend(f["epoch"][sis])
+            targets.extend(f["target"][sis])
+        return guids, epochs, targets
+
     def _process_field_batch(self, name: str, data: np.ndarray) -> np.ndarray:
         """`_process_field` over a whole (B, ...) batch the reader owns:
         trim and normalize in place, then one transpose copy."""

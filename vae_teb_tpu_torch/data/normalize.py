@@ -17,7 +17,7 @@ of it); `tests/test_torch_data.py` pins it to the original.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,11 +100,41 @@ def apply_channel_transforms(data, log_channels: Sequence[int],
     return np.where(sel == 1, logged, np.where(sel == 2, np.arcsinh(data), data))
 
 
+def field_normalizer(field_name: str, stats: FieldStats, like: torch.Tensor,
+                     channel_axis: int = -2
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """`normalize_field` for tensors of `like`'s device, dtype, rank and
+    channel count, as a function whose statistics and channel masks were
+    copied to the device once, here: calling it copies nothing from the
+    host (so a CUDA graph can hold it). Its arithmetic is normalize_field's,
+    which calls it for tensors."""
+    if field_name in SCALAR_FIELDS:
+        mean, scale = float(stats.mean), float(stats.std) + EPS
+        return lambda x: (x - mean) / scale
+    choice = _channel_choice(like.shape[channel_axis], stats.log_channels,
+                             stats.asinh_channels)
+    sel = _broadcast(choice, like, channel_axis)
+    is_log, is_asinh = sel == 1, sel == 2
+    mean = _broadcast(np.asarray(stats.mean), like, channel_axis)
+    scale = _broadcast(np.asarray(stats.std), like, channel_axis) + EPS
+    log_epsilon, transform = stats.log_epsilon, bool(choice.any())
+
+    def normalize(x: torch.Tensor) -> torch.Tensor:
+        if transform:    # apply_channel_transforms
+            logged = torch.log(torch.clamp(x, min=0.0) + log_epsilon)
+            x = torch.where(is_log, logged,
+                            torch.where(is_asinh, torch.asinh(x), x))
+        return (x - mean) / scale
+    return normalize
+
+
 def normalize_field(data, field_name: str, stats: FieldStats,
                     channel_axis: int = -2):
     """Normalize one field with precomputed stats. Scalar fields: z-score.
     Multichannel fields ((..., C, S) by default): channel transforms, then
     the per-channel z-score."""
+    if isinstance(data, torch.Tensor):
+        return field_normalizer(field_name, stats, data, channel_axis)(data)
     if field_name in SCALAR_FIELDS:
         return (data - float(stats.mean)) / (float(stats.std) + EPS)
     x = apply_channel_transforms(data, stats.log_channels,

@@ -28,6 +28,16 @@ of one unit, the units handing each step over through per-unit step flags
 `wavefront_grid_{fwd,fwd_res,bwd}_{f32,bf16}`, counted in the same
 `entry_launches` and in the same totals.
 
+Inside a CUDA-graph capture a launch is recorded, not run, and reads no
+host value that a replay would freeze: the shape caches `_held`,
+`_grid_held`, `_indices` and the built libraries are filled by an eager
+launch of the same shape first; the grid kernels' step flags are zeroed on
+the stream, which the graph replays; the launchers' cudaFuncSetAttribute
+is accepted during a capture, and the cluster-dimension and cooperative
+launch attributes are recorded with the kernel node (an H100, torch
+2.11.0+cu128, CUDA 12.8). `launch_counts` and `add_launch_counts` let a
+graph count its replays' launches.
+
 `wavefront_recurrence` is the differentiable recurrence the model calls:
 the serving forward alone (the operator) when no gradient is wanted,
 otherwise `WavefrontFunction`, whose backward runs the reverse wavefront
@@ -564,6 +574,34 @@ def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
 
 wavefront_bwd.launches = 0
 wavefront_bwd.entry_launches = Counter()
+
+
+def launch_counts() -> Counter:
+    """A snapshot of the wrappers' launch counts: (wrapper, count name) for
+    the totals, (wrapper, entry point) for `entry_launches`."""
+    counts = Counter({("wavefront_fwd", "launches"): wavefront_fwd.launches,
+                      ("wavefront_fwd", "residual_launches"):
+                          wavefront_fwd.residual_launches,
+                      ("wavefront_bwd", "launches"): wavefront_bwd.launches})
+    for fn in (wavefront_fwd, wavefront_bwd):
+        counts.update({(fn.__name__, e): n
+                       for e, n in fn.entry_launches.items()})
+    return counts
+
+
+def add_launch_counts(delta: Counter, times: int = 1) -> None:
+    """Add `times` x `delta` (a difference of two `launch_counts()`) to the
+    counts. A CUDA graph's capture records its kernels without launching
+    them, and each replay launches them again without a Python call: the
+    capture takes back what its wrapper calls counted (times=-1), and every
+    replay adds it (`train.graphs.StepGraph`)."""
+    for (name, key), n in delta.items():
+        fn = {"wavefront_fwd": wavefront_fwd, "wavefront_bwd": wavefront_bwd
+              }[name]
+        if key in ("launches", "residual_launches"):
+            setattr(fn, key, getattr(fn, key) + times * n)
+        else:
+            fn.entry_launches[key] += times * n
 
 
 class WavefrontFunction(torch.autograd.Function):

@@ -30,7 +30,7 @@ the reverse wavefront for gradients) and plain PyTorch on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -367,6 +367,24 @@ def _wavefront_meta(operands):
     return H, depths, offsets, U, D, lvec
 
 
+_lvecs: Dict[Tuple, torch.Tensor] = {}
+
+
+def _lvec_like(lvec: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """`_wavefront_meta`'s lvec as a tensor on `like`'s device. For a plain
+    tensor it is copied there once per (lvec, device): an eager forward
+    copies nothing from the host, so a CUDA graph of a train step holds no
+    host buffer. While tracing (torch.export's fake tensors) it is made
+    anew, so the program holds it as its own constant."""
+    if type(like) is not torch.Tensor:
+        return torch.as_tensor(lvec, device=like.device)
+    key = (tuple(lvec.tolist()), like.device)
+    if key not in _lvecs:
+        with torch.inference_mode(False):   # usable where autograd records
+            _lvecs[key] = torch.as_tensor(lvec, device=like.device)
+    return _lvecs[key]
+
+
 def _wavefront_pack(operands, H, depths, offsets, U):
     """Pack per-unit weights into the block-bidiagonal wavefront matrix.
 
@@ -459,7 +477,7 @@ def run_lstm_streams(streams: Sequence[LSTMStream],
     c0 = torch.cat([c for op in operands for c in op["init_c"]], dim=-1)
     h_seq, h_fin, c_fin = recurrence(
         W_eff, b_packed, xs_wave, h0.contiguous(), c0.contiguous(),
-        torch.as_tensor(lvec, device=xs_wave.device), S)
+        _lvec_like(lvec, xs_wave), S)
     return [(ys.transpose(0, 1), (torch.stack(h_f), torch.stack(c_f)))
             for ys, h_f, c_f in _wavefront_unpack(h_fin, c_fin, h_seq, operands)]
 

@@ -63,18 +63,23 @@ def beta_schedule(schedule: str = "linear", beta_start: float = 0.0,
 
 
 def cosine_warm_restarts(base_lr: float, t0_steps: int,
-                         eta_min_ratio: float = 0.01) -> Callable[[int], float]:
+                         eta_min_ratio: float = 0.01) -> Callable:
     """Cosine annealing with warm restarts (T_mult=1): identical cosine
     cycles of t0_steps optimizer steps, floored at eta_min_ratio * base_lr.
-    Evaluated in fp32, as the JAX schedule is."""
+    Evaluated in fp32, as the JAX schedule is, on the step's device: the
+    step is an integer (an int, or the optimizer's count tensor, which a
+    CUDA graph of the step then reads when it replays) and the result a
+    0-dim fp32 tensor."""
     t0_steps = max(int(t0_steps), 1)
-    f32 = np.float32
 
-    def fn(step: int) -> float:
-        pos = f32(step % t0_steps) / f32(t0_steps)
-        cos = f32(0.5) * (f32(1.0) + np.cos(f32(math.pi) * pos))
-        return float(f32(base_lr) * (f32(eta_min_ratio)
-                                     + f32(1.0 - eta_min_ratio) * cos))
+    def c(v):   # a constant's fp32 value
+        return float(np.float32(v))
+
+    def fn(step) -> torch.Tensor:
+        pos = torch.remainder(torch.as_tensor(step), t0_steps).float() \
+            / c(t0_steps)
+        cos = 0.5 * (1.0 + torch.cos(c(math.pi) * pos))
+        return c(base_lr) * (c(eta_min_ratio) + c(1.0 - eta_min_ratio) * cos)
     return fn
 
 
@@ -107,12 +112,18 @@ class ClippedAdamW(torch.optim.Optimizer):
     `make_optimizer` chain (see the module docstring for the arithmetic).
 
     `lr` is a float or a schedule step -> lr, evaluated at the number of
-    updates taken before this one (optax's count). `step()` reads `p.grad`
+    updates taken before this one (optax's count). The count lives on the
+    parameters' device as an int32 tensor (`count`), as optax's does, and
+    the bias corrections 1 - b**count and a scheduled lr (given the count
+    tensor) are computed there in fp32: a step reads no host value that
+    changes between steps, so a CUDA graph of it replays exactly.
+    `state_dict()` keeps the count as a Python int. `step()` reads `p.grad`
     without changing it, updates the parameters and the moments in place,
     and returns the global gradient norm before clipping as a 0-dim tensor
-    on the parameters' device (no host synchronisation). `sharded`: the
-    parameters that are a model rank's block of a larger weight, whose
-    squared norms sum over `model_group` (see the module docstring).
+    on the parameters' device (no host synchronisation). The first step
+    creates the moments. `sharded`: the parameters that are a model rank's
+    block of a larger weight, whose squared norms sum over `model_group`
+    (see the module docstring).
     """
 
     def __init__(self, params: Iterable[torch.Tensor],
@@ -127,7 +138,8 @@ class ClippedAdamW(torch.optim.Optimizer):
         if len(self.param_groups) != 1:
             raise ValueError("ClippedAdamW clips over one global norm: pass "
                              "one parameter group")
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int32,
+                                 device=self.param_groups[0]["params"][0].device)
         self.sharded = {id(p) for p in sharded}
         self.model_group = model_group
 
@@ -175,9 +187,9 @@ class ClippedAdamW(torch.optim.Optimizer):
         torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
                                                    1 - b2))
         self.count += 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(b1) ** f32(self.count))
-        bc2 = float(f32(1) - f32(b2) ** f32(self.count))
+        count = self.count.float()
+        bc1 = 1 - torch.pow(b1, count)
+        bc2 = 1 - torch.pow(b2, count)
         # (mu / bc1) / (sqrt(nu / bc2) + eps)
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)
@@ -192,8 +204,8 @@ class ClippedAdamW(torch.optim.Optimizer):
         torch._foreach_add_(upd, torch._foreach_mul(params,
                                                     group["weight_decay"]))
         lr = group["lr"]
-        lr = lr(self.count - 1) if callable(lr) else lr
-        torch._foreach_mul_(upd, -lr)
+        lr = -lr(self.count - 1) if callable(lr) else -lr
+        torch._foreach_mul_(upd, lr)
         torch._foreach_add_(params, upd)
         return norm
 
@@ -203,7 +215,7 @@ class ClippedAdamW(torch.optim.Optimizer):
         not yet stepped). The schedule and hyperparameters are not state:
         they come from the constructor."""
         params = _params(self)
-        return {"count": self.count,
+        return {"count": int(self.count),
                 "mu": [self.state[p]["mu"] if p in self.state else None
                        for p in params],
                 "nu": [self.state[p]["nu"] if p in self.state else None
@@ -214,11 +226,12 @@ class ClippedAdamW(torch.optim.Optimizer):
         if len(state["mu"]) != len(params):
             raise ValueError(f"optimizer state for {len(state['mu'])} "
                              f"parameters, this optimizer has {len(params)}")
-        self.count = int(state["count"])
+        self.count.fill_(int(state["count"]))
         self.state.clear()
         for p, mu, nu in zip(params, state["mu"], state["nu"]):
             if mu is not None:
-                self.state[p] = {"mu": mu.to(p.device), "nu": nu.to(p.device)}
+                self.state[p] = {"mu": mu.to(p.device, copy=True),
+                                 "nu": nu.to(p.device, copy=True)}
 
 
 class MultiSteps:
@@ -231,6 +244,12 @@ class MultiSteps:
     wrapped optimizer's state and its count stay as they are. `step()`
     returns the global norm of the micro-step's own gradient, the
     `grad_norm` the JAX package reports per micro-step.
+
+    The micro-step is a host value and each one takes its own branch (a
+    CUDA graph of the train step is captured per micro-step, and the
+    trainer calls `advance()` after each replay). The running
+    mean lives in buffers made at the first step and zeroed at each
+    micro-step 0, so every graph reads and writes the same memory.
     """
 
     def __init__(self, inner: torch.optim.Optimizer, every_k: int):
@@ -255,6 +274,8 @@ class MultiSteps:
                 if hasattr(self.inner, "grad_norm") else global_norm(grads))
         if self.acc is None:
             self.acc = [torch.zeros_like(g) for g in grads]
+        elif self.mini_step == 0:
+            torch._foreach_zero_(self.acc)
         delta = torch._foreach_sub(grads, self.acc)
         torch._foreach_div_(delta, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, delta)
@@ -263,11 +284,20 @@ class MultiSteps:
             for p, a in zip(params, self.acc):
                 p.grad = a
             self.inner.step()
-            self.acc, self.mini_step = None, 0
+            self.mini_step = 0
         return norm
 
+    def advance(self) -> None:
+        """Move on one micro-step as `step()` does, on the host alone: after
+        a CUDA graph of a train step replays, which runs `step()`'s device
+        work and none of its Python."""
+        self.mini_step = (self.mini_step + 1) % self.every_k
+
     def state_dict(self) -> Dict:
-        return {"mini_step": self.mini_step, "acc": self.acc,
+        """The micro-step, the running mean (None at micro-step 0, when
+        none is held) and the wrapped optimizer's state."""
+        return {"mini_step": self.mini_step,
+                "acc": self.acc if self.mini_step else None,
                 "inner": self.inner.state_dict()}
 
     def load_state_dict(self, state: Dict) -> None:
@@ -275,7 +305,8 @@ class MultiSteps:
         self.inner.load_state_dict(state["inner"])
         self.mini_step = int(state["mini_step"])
         self.acc = (None if state["acc"] is None else
-                    [a.to(p.device) for a, p in zip(state["acc"], params)])
+                    [a.to(p.device, copy=True)
+                     for a, p in zip(state["acc"], params)])
 
 
 def make_optimizer(params: Iterable[torch.Tensor],

@@ -20,8 +20,15 @@ wide decoder-head weights and their Adam moments are sharded by
 `tp_min_dim` (`train.distributed`). `mesh=None` is the one-device trainer,
 unchanged.
 
-Not ported yet: steps_per_execution > 1, whose counterpart is a CUDA-graph
-capture of the step (ROADMAP Queue 1 item 2); it raises.
+K steps per execution (`TrainerConfig.steps_per_execution`,
+`train_multi_step`): the JAX package scans the step over a (K, B, ...)
+stack in one dispatch. On the card the port replays a CUDA graph of the
+step K times (`train.graphs`): the first steps of each batch shape (and
+accumulation micro-step) run eagerly, as steps and as the graph's
+warm-up, and the graph is captured after them; every later step of that
+shape is a replay, whose result is the eager step's. On the CPU a group
+is a loop of `train_step`. Under a mesh `fit` steps one batch at a time,
+as the JAX package does in a multi-process run.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ import torch
 from ..device import resolve_device
 from ..models.vae_teb import SeqVaeTeb, compute_loss
 from .distributed import MeshRunner
-from .schedules import (MultiSteps, beta_schedule, cosine_warm_restarts,
-                        global_norm, make_optimizer)
+from .graphs import StepGraph, capture_step, flat_rows
+from .schedules import (ClippedAdamW, MultiSteps, beta_schedule,
+                        cosine_warm_restarts, global_norm, make_optimizer)
 
 FIELDS = ("fhr_st", "fhr_ph", "fhr_up_ph", "fhr")   # y_st, y_ph, x_ph, y_raw
 
@@ -78,8 +86,8 @@ class TrainerConfig:
     tp_min_dim: int = 2048
     # batches staged onto the device ahead of the step (0 disables)
     prefetch: int = 2
-    # > 1 raises: its counterpart, a CUDA-graph capture of the step, is
-    # ROADMAP Queue 1 item 2
+    # train steps per execution: fit groups K batches of one shape into
+    # one train_multi_step (a CUDA graph replayed K times on the card)
     steps_per_execution: int = 1
 
     def model_dtype(self) -> Optional[torch.dtype]:
@@ -97,6 +105,22 @@ class TrainerConfig:
         if self.moment_dtype in ("fp32", "float32"):
             return None
         raise ValueError(f"unknown moment_dtype: {self.moment_dtype!r}")
+
+
+def _groups(batches: Iterable[Mapping], k: int) -> Iterator[list]:
+    """Consecutive batches in lists of up to k whose fields have one shape
+    each: a batch of another shape closes the list early (the JAX
+    package's `_stack_batches` stacks k whatever their shapes)."""
+    group, shapes = [], None
+    for b in batches:
+        s = tuple(tuple(b[f].shape) for f in FIELDS)
+        if group and (s != shapes or len(group) == k):
+            yield group
+            group = []
+        group.append(b)
+        shapes = s
+    if group:
+        yield group
 
 
 class Trainer:
@@ -123,6 +147,12 @@ class Trainer:
     normalizes them on the device and swaps them to (B, S, C) (`_prep`).
     Otherwise a batch holds fhr_st (B, S, 43), fhr_ph (B, S, 44), fhr_up_ph
     (B, S, 130) and the raw target fhr (B, 16 S), as arrays or tensors.
+
+    With steps_per_execution > 1 on the card the step is captured as a
+    CUDA graph (`train_multi_step`), so the optimizer must be one whose
+    step reads no host value that changes between steps: the default
+    (`ClippedAdamW`), or a torch.optim optimizer built with
+    capturable=True; any other raises here.
     """
 
     def __init__(self, model: SeqVaeTeb, config: TrainerConfig = TrainerConfig(),
@@ -136,10 +166,9 @@ class Trainer:
             raise ValueError(f"precision={config.precision!r} needs a model "
                              f"with dtype={dtype}, got "
                              f"{getattr(model, 'dtype', None)}")
-        if config.steps_per_execution > 1:
-            raise NotImplementedError(
-                "steps_per_execution > 1 (a CUDA-graph capture of the step) "
-                "is not ported yet: ROADMAP Queue 1 item 2")
+        if config.steps_per_execution < 1:
+            raise ValueError(f"steps_per_execution must be >= 1, got "
+                             f"{config.steps_per_execution}")
         self.config = config
         self.mesh = mesh
         self.device = resolve_device(
@@ -165,9 +194,21 @@ class Trainer:
         if config.accumulate_grad_batches > 1:
             self.optimizer = MultiSteps(self.optimizer,
                                         config.accumulate_grad_batches)
+        if config.steps_per_execution > 1:
+            self._check_capturable()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         self.step = 0            # train steps taken (micro-steps included)
+        # the loss's KLD weight, read by the step on the device
+        self._beta = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._normalizers: Dict[tuple, Callable] = {}
+        # captured steps by (field shapes, eps given, micro-step), sharing
+        # one memory pool
+        self.graphs: Dict[tuple, StepGraph] = {}
+        self._pool = None
+        # whether train_multi_step replays graphs (on the card) or loops
+        # train_step
+        self.captures = self.device.type == "cuda"
         # per-epoch KLD weight
         self.beta_fn = beta_schedule(config.beta_schedule, config.beta_start,
                                      config.beta_end, config.beta_anneal_epochs,
@@ -182,20 +223,30 @@ class Trainer:
 
     def _prep(self, y_st, y_ph, x_ph, y_raw):
         """Identity unless normalize_stats is set; then the raw (B, C, S)
-        fields are normalized (`data.normalize.normalize_field`) and
-        swapped to (B, S, C), and fhr is z-scored, on the device."""
+        fields are normalized (`data.normalize.normalize_field`'s
+        arithmetic, with the statistics copied to the device at the first
+        batch of each shape) and swapped to (B, S, C), and fhr is z-scored,
+        on the device."""
         st = self.normalize_stats
         if st is None:
             return y_st, y_ph, x_ph, y_raw
-        from ..data.normalize import normalize_field
+        from ..data.normalize import field_normalizer
+
+        def norm(x, name, channel_axis):
+            key = (name, x.shape[channel_axis], x.ndim, x.dtype, x.device)
+            if key not in self._normalizers:   # usable where autograd records
+                with torch.inference_mode(False):
+                    self._normalizers[key] = field_normalizer(
+                        name, st[name], x, channel_axis)
+            return self._normalizers[key](x)
 
         def mc(x, name):
             if name in st:
-                x = normalize_field(x, name, st[name], channel_axis=-2)
+                x = norm(x, name, -2)
             return x.transpose(1, 2)
 
         if "fhr" in st:
-            y_raw = normalize_field(y_raw, "fhr", st["fhr"])
+            y_raw = norm(y_raw, "fhr", -1)
         return (mc(y_st, "fhr_st"), mc(y_ph, "fhr_ph"),
                 mc(x_ph, "fhr_up_ph"), y_raw)
 
@@ -212,13 +263,23 @@ class Trainer:
         losses, total_loss, and grad_norm, the global norm of this step's
         gradient before clipping.
         """
-        y_st, y_ph, x_ph, y_raw = self._prep(*self._batch(batch))
+        self._beta.fill_(beta)
+        metrics = self._step(*self._batch(batch), eps)
+        self.step += 1
+        return metrics
+
+    def _step(self, y_st, y_ph, x_ph, y_raw, eps=None
+              ) -> Dict[str, torch.Tensor]:
+        """The step's device work on the fields as tensors (the body that
+        `train.graphs.capture_step` records): everything `train_step` does
+        but count the step."""
+        y_st, y_ph, x_ph, y_raw = self._prep(y_st, y_ph, x_ph, y_raw)
         model = self.model.train()
         runner = self.runner
         with (runner.noise() if runner else contextlib.nullcontext()):
             out = model(y_st, y_ph, x_ph, deterministic=False,
                         generator=self.generator, eps=eps)
-        losses = compute_loss(out, y_st, y_ph, y_raw, beta=beta)
+        losses = compute_loss(out, y_st, y_ph, y_raw, beta=self._beta)
         self.optimizer.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
         if runner:
@@ -227,12 +288,102 @@ class Trainer:
         if grad_norm is None:   # a torch.optim optimizer returns no norm
             grad_norm = global_norm([p.grad for p in self.model.parameters()
                                      if p.grad is not None])
-        self.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         if runner:
             metrics = runner.mean(metrics)
         metrics["grad_norm"] = grad_norm
         return metrics
+
+    def _check_capturable(self) -> None:
+        """Raise unless a CUDA graph of the step can replay the optimizer:
+        `ClippedAdamW` or a torch.optim optimizer with capturable=True.
+        Checked on the card only: on the CPU nothing is captured."""
+        inner = getattr(self.optimizer, "inner", self.optimizer)
+        if (self.device.type == "cuda" and not isinstance(inner, ClippedAdamW)
+                and not inner.defaults.get("capturable", False)):
+            raise ValueError(
+                f"steps_per_execution > 1 captures the train step as a CUDA "
+                f"graph, and the optimizer {type(inner).__name__} was not "
+                f"built with capturable=True: its step reads host values a "
+                f"replay would freeze")
+
+    def train_multi_step(self, stacked_batch: Mapping, beta: float,
+                         eps: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """K = leading-axis train steps in one execution: the JAX package's
+        `train_multi_step`. `stacked_batch` holds (K, B, ...) stacks of K
+        consecutive batches (`np.stack` of what `train_step` takes), `eps`
+        (K, B, S, latent) if given. Returns each metric as a (K,) device
+        tensor; every state advances as K `train_step` calls would advance
+        it, `step` by K.
+
+        On the CPU this is a loop of `train_step`. On the card each step is
+        a replay of the step's CUDA graph for its field shapes, whether
+        eps is given and the accumulation micro-step: a step whose graph
+        does not exist yet runs eagerly (the warm-up), and the graph is
+        captured after the group, so the next group replays it. A replay
+        computes what the eager step computes, and its kernel launches are
+        counted as theirs. Raises under a mesh (`fit` steps one batch at a
+        time there) and for an optimizer a graph cannot replay."""
+        if self.runner is not None:
+            raise ValueError("train_multi_step steps one device: under a mesh "
+                             "fit takes one batch at a time")
+        fields = [torch.as_tensor(stacked_batch[k], dtype=torch.float32,
+                                  device=self.device) for k in FIELDS]
+        K = fields[0].shape[0]
+        if any(f.shape[0] != K for f in fields) or (
+                eps is not None and eps.shape[0] != K):
+            raise ValueError("stacked fields and eps need one leading K")
+        if not self.captures:
+            steps = [self.train_step({k: f[i] for k, f in zip(FIELDS, fields)},
+                                     beta, None if eps is None else eps[i])
+                     for i in range(K)]
+            return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        self._check_capturable()
+        self._beta.fill_(beta)
+        if eps is not None:
+            fields.append(torch.as_tensor(eps, dtype=torch.float32,
+                                          device=self.device))
+        shapes = tuple(tuple(f.shape[1:]) for f in fields)
+        rows = flat_rows(fields)
+        out, pending = [], []
+        for i in range(K):
+            key = (shapes, self._micro_step())
+            graph = self.graphs.get(key)
+            if graph is None:
+                metrics = self._step(*(f[i] for f in fields))
+                names = list(metrics)
+                out.append(torch.stack([metrics[k].float() for k in names]))
+                pending.append(key)
+            else:
+                out.append(graph.replay(rows[i]))
+                names = graph.metrics
+                if isinstance(self.optimizer, MultiSteps):
+                    self.optimizer.advance()
+            self.step += 1
+        for key in dict.fromkeys(pending):   # capture runs nothing: the
+            self._capture(key, shapes)       # next group replays it
+        out = torch.stack(out)
+        return {k: out[:, j] for j, k in enumerate(names)}
+
+    def _micro_step(self) -> int:
+        return getattr(self.optimizer, "mini_step", 0)
+
+    def _capture(self, key: tuple, shapes) -> None:
+        """Capture the step for `key` = (shapes, micro-step) into the
+        trainer's shared memory pool, with the accumulation's micro-step
+        set to the key's and restored after."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        micro = self._micro_step()
+        if isinstance(self.optimizer, MultiSteps):
+            self.optimizer.mini_step = key[1]
+        try:
+            self.graphs[key] = capture_step(
+                self._step, shapes, self.generator, self._pool, self.device)
+        finally:
+            if isinstance(self.optimizer, MultiSteps):
+                self.optimizer.mini_step = micro
 
     @torch.no_grad()
     def eval_step(self, batch: Mapping, beta: float) -> Dict[str, torch.Tensor]:
@@ -273,15 +424,18 @@ class Trainer:
         self.optimizer.load_state_dict(optimizer_state)
         self.generator.set_state(state["generator"])
         self.step = int(state["step"])
+        self.graphs.clear()   # they hold the replaced moments' memory
 
     # -- loop ----------------------------------------------------------------
 
     @staticmethod
     def _mean(metrics: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, float]:
-        """Per key, the mean over steps (one device-to-host copy a key)."""
+        """Per key, the mean over steps, each step weighing the same whether
+        it came alone (a 0-dim tensor) or in a group ((K,)); one
+        device-to-host copy a key."""
         if not metrics:
             return {}
-        return {k: float(np.mean(torch.stack([m[k] for m in metrics])
+        return {k: float(np.mean(torch.cat([m[k].reshape(-1) for m in metrics])
                                  .float().cpu().numpy()))
                 for k in metrics[0]}
 
@@ -295,9 +449,13 @@ class Trainer:
 
         train_batches / val_batches: epoch index -> batch iterator (so each
         epoch can reshuffle). Per epoch: beta from the schedule, train steps
-        (batches staged `config.prefetch` ahead onto the device), the
-        validation means, history entries (epoch, beta, epoch_time,
-        windows_per_sec, train/<metric>, val/<metric>) and one log line.
+        (batches staged `config.prefetch` ahead onto the device; with
+        steps_per_execution = K > 1, groups of up to K consecutive batches
+        of one shape through `train_multi_step`, a batch of another shape
+        closing a group early; under a mesh one batch at a time, logged
+        once), the validation means, history entries (epoch, beta,
+        epoch_time, windows_per_sec, train/<metric> as the mean over
+        steps, val/<metric>) and one log line.
         The monitored metric is the validation total_loss, else the train
         one; `checkpointer.save(self.state_dict(), step=epoch,
         metric=monitored)` keeps the best (on rank 0: under a mesh every
@@ -310,6 +468,11 @@ class Trainer:
         cfg = self.config
         best_val = float("inf")
         bad_epochs = 0
+        spe = cfg.steps_per_execution
+        if spe > 1 and self.runner is not None:
+            log_fn(f"steps_per_execution={spe} is not used under a mesh: "
+                   f"one train step per batch")
+            spe = 1
         for epoch in range(start_epoch,
                            epochs if epochs is not None else cfg.epochs):
             beta = self.beta_fn(epoch)
@@ -323,9 +486,15 @@ class Trainer:
                                              device=self.device,
                                              array_fields=FIELDS)
             rows = self.runner.n_data if self.runner else 1
-            for batch in batches:
-                n_windows += rows * int(batch["fhr"].shape[0])
-                train_metrics.append(self.train_step(batch, beta))
+            for group in _groups(batches, spe):
+                n_windows += rows * sum(int(b["fhr"].shape[0]) for b in group)
+                if spe == 1:
+                    train_metrics.append(self.train_step(group[0], beta))
+                else:
+                    train_metrics.append(self.train_multi_step(
+                        {k: torch.stack([torch.as_tensor(
+                            b[k], dtype=torch.float32, device=self.device)
+                            for b in group]) for k in FIELDS}, beta))
             train_avg = self._mean(train_metrics)
             epoch_time = time.time() - t0
             win_rate = n_windows / epoch_time if epoch_time > 0 else 0.0
