@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, training step, training entry
 point, exact frontend, dataset ETL, evaluation, streaming, the forecast,
-predict-st and classifier families, and data- and tensor-parallel
-training on an NVIDIA GPU.
+predict-st and classifier families, data- and tensor-parallel training,
+captured train steps, and LSTM widths that take the kernels zero-padded or
+in depth groups, on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
@@ -10,6 +11,7 @@ training on an NVIDIA GPU.
     python3 chip_smoke.py --grid      # phases 1, 2 and 12 (a), printing no result
     python3 chip_smoke.py --parallel  # phases 1, 2 and 13, printing no result
     python3 chip_smoke.py --capture   # phases 1, 2 and 14, printing no result
+    python3 chip_smoke.py --coverage  # phases 1, 2 and 15, printing no result
 
 Run with --kernels, --serve or --grid from a copy placed at the root of
 another checkout, it times that checkout's kernels or serving path (the
@@ -202,13 +204,38 @@ Phases, each of which raises on failure (exit code 1):
      as (a): a graph a micro-step, each replayed twice, the count and the
      micro-step exact, one replay of each micro-step from one state;
      `--capture` runs this phase alone;
- 15. print the card's nvidia-smi name and power limit, one JSON line for
+ 15. LSTM shapes the kernels take only zero-padded (H not a multiple of 8)
+     or in depth groups (stacks too wide for one launch), through the
+     model's own packing (`models.blocks.run_lstm_streams`): (a) two
+     4-layer streams of H = 5, 60, 100, padded to 8, 64, 104 (cluster,
+     cluster, grid kernels), K=303, B=32, fp32 and bf16: the three kernels
+     against their plain versions at phase 3's bars, with times (this
+     phase's: CUDA events, median of 5), bound (of the unpadded function)
+     and cuDNN; (a, b) SeqVaeTeb at
+     lstm_hidden_dim 5, 60, 100 and 512 (the last: two 4-layer streams of
+     H=512 in depth groups, which the card's residency decides and the
+     phase prints), fp32 and bf16, B=32, on coefficients of seeded raw
+     windows: one serving forward and one train step, each launching one
+     kernel a depth group each way, against the plain recurrence on the
+     card in the same groups (serving at phase 4's and 6's bars, the
+     gradients at phase 5's and 7's); at 512 also the plain recurrence
+     chained against one group (what the hoisted projections move), the
+     encoder LSTMs alone against cuDNN's torch.nn.LSTM(in, 512, 4) per
+     stream (serving forward, forward and backward), and each group's
+     kernels at its shape with times, bound and cuDNN; (c) at 512 fp32,
+     a train step captured (steps_per_execution 2) and one replay from
+     that run's state against three eager steps (phase 14's bar and
+     controls), each replay launching one kernel a group each way; (d)
+     fp32 H=1024 raises before any launch, naming the shared memory;
+     `--coverage` runs this phase alone;
+ 16. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start, the serving forward's launches
      in phase 10, in phase 11 the sessions' and the loaded programs', and
      phase 12's model runs', and phase 13's per world and rank
      (`parallel_launches`), and phase 14's launches by graph replays, per
-     storage type (`captured_launches`); the grid kernels' rows at (3,
+     storage type (`captured_launches`), and phase 15's model runs', per
+     storage type (`coverage_launches`); the grid kernels' rows at (3,
      256), B=32, fp32, with their errors, times, cuDNN times and bounds at
      every phase-12 shape and storage type, `by_shape`), and last {"ok":
      true, "device": {...}}.
@@ -478,7 +505,7 @@ def cudnn_check(streams, depths, h_seq, h_fin, c_fin, S):
     return worst
 
 
-def cudnn_times(streams, gen):
+def cudnn_times(streams, gen, runs=TIMED_RUNS):
     """CUDA-event ms of the yardstick's forward and of its backward-data
     (autograd.grad of ys, h_n, c_n with respect to xs, h0, c0 after one
     forward; the weights need no gradient), both streams back to back."""
@@ -497,7 +524,7 @@ def cudnn_times(streams, gen):
     def bwd():
         for outs, leaves, cots in graphs:
             torch.autograd.grad(outs, leaves, cots, retain_graph=True)
-    return cuda_time_ms(fwd), cuda_time_ms(bwd)
+    return cuda_time_ms(fwd, runs), cuda_time_ms(bwd, runs)
 
 
 def check_residency(device):
@@ -538,13 +565,47 @@ KERNEL_CASES = (((4, 4), 32, torch.float32, True),
                 ((4, 4), 1, torch.float32, False))
 
 
+def pad_units(args, H, Hp):
+    """Wavefront operands packed at width H (`recurrence_inputs`) as
+    `run_lstm_streams` packs them for H not a multiple of 8: each unit's
+    blocks at [:H] of Hp columns, zeros in the rest."""
+    W, b, xs, h0, c0, lvec = args
+    U = lvec.numel()
+    K, B = xs.shape[:2]
+    Wp = W.new_zeros(U, Hp, 4, U, Hp)
+    Wp[:, :H, :, :, :H] = W.view(U, H, 4, U, H)
+    bp = b.new_zeros(4, U, Hp)
+    bp[..., :H] = b.view(4, U, H)
+    xp = xs.new_zeros(K, B, 4, U, Hp)
+    xp[..., :H] = xs.view(K, B, 4, U, H)
+    return (Wp.view(U * Hp, 4 * U * Hp), bp.view(-1), xp.view(K, B, -1),
+            pad_state(h0, H, Hp), pad_state(c0, H, Hp), lvec)
+
+
+def pad_state(x, H, Hp):
+    """(..., U * H) states or cotangents at (..., U * Hp), zero padded."""
+    return torch.nn.functional.pad(x.unflatten(-1, (-1, H)), (0, Hp - H)
+                                   ).flatten(-2)
+
+
+def unpad(x, H, Hp):
+    """(..., n * Hp) packed columns back to each unit's first H."""
+    return x.unflatten(-1, (-1, Hp))[..., :H].flatten(-2)
+
+
 def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
-                  library_bars=LIBRARY_REL_TOL):
+                  library_bars=LIBRARY_REL_TOL, pad_to=None,
+                  plain_runs=PLAIN_RUNS, runs=TIMED_RUNS):
     """The three kernels against their plain versions on the card, with
     times, bounds and the cuDNN yardstick (held to the kernel at
     `library_bars[dtype]`, reported only for a dtype it does not name);
     prints each case's launch plan; returns {(kind, depths, B, dtype):
-    (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}."""
+    (err, ms, plain_ms, library_ms, (bound_ms, bound_by))}. With `pad_to`,
+    the operands of width H run zero-padded to that width (`pad_units`),
+    as the model runs an H that is not a multiple of 8: cuDNN and the
+    bound take the unpadded function. `plain_runs` 0 times no plain
+    version (plain_ms None); `runs` are the kernels' and cuDNN's timed
+    runs."""
     from vae_teb_tpu_torch.kernels import (wavefront_bwd, wavefront_bwd_plain,
                                            wavefront_fwd, wavefront_fwd_plain)
     from vae_teb_tpu_torch.kernels.wavefront import _check, _launch_plan
@@ -557,12 +618,17 @@ def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
         name = str(dtype)[6:]
         label = (f"{'x'.join(map(str, depths))} layers H={H} B={b} S={S} "
                  f"{name}")
-        args = recurrence_inputs(gen, b, S, H, depths, dtype, device)
+        raw = recurrence_inputs(gen, b, S, H, depths, dtype, device)
+        Hp = pad_to or H
+        args = pad_units(raw, H, Hp) if pad_to else raw
+        if pad_to:
+            label += f" padded to {Hp}"
         W, _, xs, h0, c0, lvec = args
         K, U = xs.shape[0], lvec.numel()
         n_feed = int((lvec > 0).sum())
         log(f"{label}: launch plan {_check('plan', args[:5], lvec, xs)}")
-        time_pair = (lambda f, g: (cuda_time_ms(f), cuda_time_ms(g, PLAIN_RUNS))
+        time_pair = (lambda f, g: (cuda_time_ms(f, runs), cuda_time_ms(
+            g, plain_runs) if plain_runs else None)
                      ) if timed else (lambda f, g: (None, None))
 
         got = wavefront_fwd(*args, S)
@@ -603,8 +669,9 @@ def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
         rnd = lambda *shape: torch.randn(shape, generator=gen).to(
             device=device, dtype=dtype)
         UH = U * H
-        bargs = (W, gates_seq, c_seq, c_prev, rnd(K, b, UH), rnd(b, UH),
-                 rnd(b, UH), lvec)
+        bargs = (W, gates_seq, c_seq, c_prev) + tuple(
+            pad_state(x, H, Hp) for x in (rnd(K, b, UH), rnd(b, UH),
+                                          rnd(b, UH))) + (lvec,)
         got = wavefront_bwd(*bargs, S)
         want = wavefront_bwd_plain(*bargs, S)
         torch.cuda.synchronize()
@@ -626,21 +693,22 @@ def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
             continue
         lib = {"fwd": None, "fwd_res": None, "bwd": None}
         try:
-            streams = cudnn_streams(args, depths, S)
-            lib_err = cudnn_check(streams, depths, *fwd_out, S)
+            streams = cudnn_streams(raw, depths, S)
+            lib_err = cudnn_check(streams, depths, *(
+                unpad(x, H, Hp) for x in fwd_out), S)
             lib_tol = library_bars.get(dtype)
             log(f"cuDNN LSTM yardstick {label}: ys, h_n, c_n against the "
                 f"kernel max-abs/max {lib_err!r} (tol {lib_tol})")
             if lib_tol is not None and not lib_err <= lib_tol:
                 failed.append(f"cuDNN yardstick {label}: {lib_err} > "
                               f"{lib_tol}")
-            lib_fwd, lib_bwd = cudnn_times(streams, gen)
+            lib_fwd, lib_bwd = cudnn_times(streams, gen, runs)
             lib = {"fwd": lib_fwd, "fwd_res": lib_fwd, "bwd": lib_bwd}
         except RuntimeError as e:     # a type cuDNN's LSTM does not take
             log(f"cuDNN LSTM yardstick {label}: not available ({e})")
         # the grid kernels run fp32 products on the tensor cores (3xTF32),
         # the cluster kernels on the CUDA cores
-        grid = _launch_plan(b, U, H, dtype).kind == "grid"
+        grid = _launch_plan(b, U, Hp, dtype).kind == "grid"
         for kind in ("fwd", "fwd_res", "bwd"):
             bnd = bound(kind, b, K, S, U, H, n_feed, xs.element_size(), grid)
             results[(kind, depths, b, dtype)] += [lib[kind], bnd]
@@ -3621,14 +3689,426 @@ def _capture_cli(device, frontend, gen):
     return failed
 
 
+# Phase 15: the LSTM shapes the kernels take through zero padding (H not a
+# multiple of 8) and depth groups (stacks too wide for one launch)
+COVERAGE_PADDED = (5, 60, 100)   # hidden sizes padded to 8, 64, 104
+COVERAGE_WIDE = 512              # two 4-layer streams: 8 units too many
+COVERAGE_REFUSED = 1024          # fp32: one unit over the shared memory
+COVERAGE_BATCH = 32
+# phase 15's timed runs (median of 5, after a warm-up): it times 8 shapes
+# of kernels and cuDNN (bf16 cuDNN 20-63 ms a call) and the encoder LSTMs
+COVERAGE_TIMED_RUNS = 5
+# A bf16 model run held to another bf16 run (kernels against the plain
+# recurrence; chained against one group) within this many times the plain
+# bf16 model's own distance from the plain fp32 model, max-abs over max of
+# the worst output: the decoder heads amplify a bf16 rounding anywhere
+# upstream (PERF.md section 6: on an H100 the bf16 model is 0.86 of max
+# from fp32 at lstm_hidden_dim=512, B=32, where phase 6's 0.1 holds at
+# 64), while a wrong layer or state moves the encoders' outputs by O(1)
+BF16_POLICY_RATIO = 1.5
+
+
+def _one_group(depths, h, dtype, device):
+    """A planner that puts every layer of every stream in one launch."""
+    return (tuple((s, 0, d) for s, d in enumerate(depths)),)
+
+
+def _at_width(seeded, hidden, dtype=None):
+    """SeqVaeTeb(lstm_hidden_dim=hidden, dtype=dtype) holding `seeded`'s
+    conditional encoder and decoder, its encoders (whose widths follow the
+    LSTM's) initialized from INIT_SEED."""
+    from vae_teb_tpu_torch import SeqVaeTeb, init_parameters
+    m = SeqVaeTeb(lstm_hidden_dim=hidden, dtype=dtype)
+    if hidden == seeded.source_encoder.lstm.hidden_size:
+        m.load_state_dict(seeded.state_dict())
+        return m
+    for name in ("source_encoder", "target_encoder"):
+        init_parameters(getattr(m, name), seed=INIT_SEED)
+    for name in ("conditional_encoder", "decoder"):
+        getattr(m, name).load_state_dict(getattr(seeded, name).state_dict())
+    return m
+
+
+def _model_runs(device, model, frontend, batch, eps, beta, label, failed,
+                fp32_plain=None, both_ways=False):
+    """One serving forward and one train step of `model` (copied for each
+    run) through the kernels, with their launches by entry
+    point and the checks: launches equal to the depth groups (one serving
+    forward; one residual forward and one reverse a step), finite outputs,
+    the serving forward against the plain recurrence on the card in the
+    same groups (fp32: phase 4's bar; bf16: within BF16_POLICY_RATIO times
+    the plain bf16 model's distance from the plain fp32 model's outputs,
+    `fp32_plain`), and the step's gradients against the plain reverse
+    wavefront behind one forward (phase 5's and 7's bars). With
+    `both_ways`, also a step through the plain recurrence both ways, whose
+    forward differs by rounding (reported, not held: at B=32 ReLU inputs
+    within rounding of 0 move it by a configuration's own amount, phase
+    5). Returns (the groups, {entry: launches} of the serving forward and
+    the step, the plain serving outputs, the gradients by run)."""
+    import copy
+    from vae_teb_tpu_torch import InferenceServer, Trainer, TrainerConfig
+    from vae_teb_tpu_torch.kernels import (wavefront, wavefront_bwd,
+                                           wavefront_bwd_plain,
+                                           wavefront_fwd_plain)
+    from vae_teb_tpu_torch.models.blocks import padded_width
+    dtype = model.dtype or torch.float32
+    fp32 = dtype == torch.float32
+    kind = "f32" if fp32 else "bf16"
+    lstm = model.source_encoder.lstm
+    hp = padded_width(lstm.hidden_size)
+    groups = wavefront.wavefront_groups((lstm.num_layers,) * 2, hp, dtype,
+                                        device)
+    # each group's route: the grid kernels where the cluster plan refuses
+    plan = {g: wavefront._launch_plan(
+        COVERAGE_BATCH, sum(l1 - l0 for _, l0, l1 in g), hp, dtype,
+        grid_resident=wavefront._card_grid_resident(device, dtype)).kind
+        for g in groups}
+    prefix = {"grid": "wavefront_grid_", "cluster": "wavefront_"}
+    n = Counter(prefix[plan[g]] for g in groups)
+    coeffs = [batch[k] for k in ("fhr_st", "fhr_ph", "fhr_up_ph")]
+    server = InferenceServer(copy.deepcopy(model), frontend, device)
+    out, served = _launched(lambda: server.infer_coefficients(*coeffs))
+    want = {f"{p}fwd_{kind}": c for p, c in n.items()}
+    server.model.recurrence = wavefront_fwd_plain
+    plain = server.infer_coefficients(*coeffs)
+    serve_err, serve_key = _rel_outputs(out, plain)
+    if fp32:
+        serve_bar, policy = SERVE_REL_TOL, ""
+    else:
+        own, own_key = _rel_outputs(plain, fp32_plain)
+        serve_bar = BF16_POLICY_RATIO * own
+        policy = (f"; the plain bf16 model against the plain fp32 model "
+                  f"{own!r} ({own_key})")
+    finite = all(torch.isfinite(v).all().item() for v in out.values())
+    del server
+    cfg = TrainerConfig(precision="fp32" if fp32 else "bf16",
+                        moment_dtype="fp32" if fp32 else "bf16")
+    module = sys.modules["vae_teb_tpu_torch.kernels.wavefront"]
+    grads, stepped = {}, {}
+    runs = ["kernels", "plain backward"] + (["plain recurrence"]
+                                            if both_ways else [])
+    for name in runs:
+        m = copy.deepcopy(model)
+        if name == "plain recurrence":
+            m.recurrence = wavefront_fwd_plain
+        if name == "plain backward":
+            module.wavefront_bwd = wavefront_bwd_plain
+        try:
+            metrics, launched = _launched(lambda: Trainer(m, cfg, device)
+                                          .train_step(batch, beta, eps=eps))
+        finally:
+            module.wavefront_bwd = wavefront_bwd
+        if name == "kernels":
+            stepped = launched
+        grads[name] = {k: p.grad for k, p in m.named_parameters()}
+        finite = finite and all(torch.isfinite(v).all().item()
+                                for v in metrics.values())
+        del m
+    step_want = {f"{p}fwd_res_{kind}": c for p, c in n.items()}
+    step_want.update({f"{p}bwd_{kind}": c for p, c in n.items()})
+    reports = {r: grad_report(grads["kernels"], grads[r]) for r in runs[1:]}
+    bar = (GRAD_REL_TOL, GRAD_REL_TOL) if fp32 else (BF16_GRAD_REL_TOL,
+                                                     BF16_GRAD_L2_TOL)
+    log(f"{label}: depth groups {groups} ({[plan[g] for g in groups]}); "
+        f"serving forward launched {served} (expected {want}), against the "
+        f"plain recurrence max-abs/max {serve_err!r} ({serve_key}; bar "
+        f"{serve_bar!r}){policy}; train step launched {stepped} (expected "
+        f"{step_want}), gradients " + ", ".join(
+            f"against the {r}: worst leaf {w!r} ({leaf}), rel-L2 {l2!r}"
+            for r, (w, leaf, l2) in reports.items())
+        + f" (bars {bar} against the plain backward); finite {finite}")
+    if served != want or stepped != step_want or not finite:
+        failed.append(f"{label}: launches {served}, {stepped} (expected "
+                      f"{want}, {step_want}), finite {finite}")
+    if not serve_err <= serve_bar:
+        failed.append(f"{label}: serving kernels vs plain {serve_err} "
+                      f"({serve_key}), bar {serve_bar}")
+    w, leaf, l2 = reports["plain backward"]
+    if not (w <= bar[0] and l2 <= bar[1]):
+        failed.append(f"{label}: gradients against the plain backward: {w} "
+                      f"({leaf}), rel-L2 {l2}")
+    return groups, Counter(served) + Counter(stepped), plain, grads
+
+
+def _rel_outputs(got, want):
+    """max over OUT_KEYS of max-abs(got - want) / max|want|, and its key."""
+    rel = {k: ((got[k].float() - want[k].float()).abs().max()
+               / want[k].float().abs().max().clamp_min(1e-30)).item()
+           for k in OUT_KEYS}
+    key = max(rel, key=rel.get)
+    return rel[key], key
+
+
+def _hoisting(device, model, frontend, batch, eps, beta, plain, grads,
+              fp32_plain, label, failed):
+    """The plain recurrence on the card in one launch's group against the
+    same chained (`plain` serving outputs, `grads` of the step through the
+    plain recurrence, fp32 only): what hoisting a group's input projection
+    moves. fp32: the serving outputs within phase 4's bar, the gradients
+    within phase 5's bars for forwards that differ by rounding. bf16 (whose
+    hoisted projection is rounded to bf16 before the recurrent product is
+    added): the chained run's distance from the fp32 model's chained run
+    (`fp32_plain`) within BF16_POLICY_RATIO times the one-group run's,
+    the bf16 policy's own distance."""
+    import copy
+    from vae_teb_tpu_torch import InferenceServer, Trainer, TrainerConfig
+    from vae_teb_tpu_torch.kernels import wavefront, wavefront_fwd_plain
+    fp32 = (model.dtype or torch.float32) == torch.float32
+    coeffs = [batch[k] for k in ("fhr_st", "fhr_ph", "fhr_up_ph")]
+    planner = wavefront.wavefront_groups
+    wavefront.wavefront_groups = _one_group
+    try:
+        server = InferenceServer(copy.deepcopy(model), frontend, device)
+        server.model.recurrence = wavefront_fwd_plain
+        one = server.infer_coefficients(*coeffs)
+        del server
+        fwd, key = _rel_outputs(plain, one)
+        report = ""
+        if fp32:
+            m = copy.deepcopy(model)
+            m.recurrence = wavefront_fwd_plain
+            Trainer(m, TrainerConfig(), device).train_step(batch, beta,
+                                                            eps=eps)
+            w, leaf, l2 = grad_report(grads["plain recurrence"], {
+                k: p.grad for k, p in m.named_parameters()})
+            del m
+            report = (f"; step gradients worst leaf {w!r} ({leaf}), rel-L2 "
+                      f"{l2!r} (bars {KINK_REL_TOL}, {KINK_L2_TOL})")
+            if not (w <= KINK_REL_TOL and l2 <= KINK_L2_TOL):
+                failed.append(f"{label}: hoisting moves the gradients {w} "
+                              f"({leaf}), rel-L2 {l2}")
+        else:
+            chained, c_key = _rel_outputs(plain, fp32_plain)
+            single, s_key = _rel_outputs(one, fp32_plain)
+            report = (f"; against the fp32 model chained: chained "
+                      f"{chained!r} ({c_key}), one group {single!r} "
+                      f"({s_key}) (bar {BF16_POLICY_RATIO} times it)")
+            if not chained <= BF16_POLICY_RATIO * single:
+                failed.append(f"{label}: the chained bf16 model is "
+                              f"{chained} ({c_key}) from fp32, in one group "
+                              f"{single} ({s_key})")
+    finally:
+        wavefront.wavefront_groups = planner
+    log(f"{label}: the plain recurrence chained against one group: serving "
+        f"outputs max-abs/max {fwd!r} ({key}){report}")
+    if fp32 and not fwd <= SERVE_REL_TOL:
+        failed.append(f"{label}: hoisting moves the serving outputs {fwd} "
+                      f"({key})")
+
+
+def _lstm_times(device, model, batch, gen, label):
+    """The model's two encoder LSTMs alone, as the model runs them
+    (run_lstm_streams on the prepared streams: packing, hoisted
+    projections, one launch a group) against cuDNN's LSTM computing the
+    same stack (one torch.nn.LSTM(in, H, layers) per stream, the model's
+    weights, batch first): the serving forward, and forward plus backward
+    of a loss on ys and the final states (the weights' gradients
+    included). CUDA-event ms, median of COVERAGE_TIMED_RUNS; cuDNN's
+    outputs against ours (held at
+    LIBRARY_REL_TOL in fp32 by the caller); ours against the plain
+    recurrence in the same groups at phase 3's bars. Returns ({"fwd": (ms,
+    cudnn_ms), "train": (ms, cudnn_ms)}, cuDNN's distance, whether the
+    plain recurrence is within its bar)."""
+    from vae_teb_tpu_torch.kernels import (wavefront_fwd_plain,
+                                           wavefront_recurrence)
+    from vae_teb_tpu_torch.models import run_lstm_streams
+    dtype = model.dtype or torch.float32
+    se, te = model.source_encoder, model.target_encoder
+    model.eval()   # the LSTMs' inputs, its running statistics untouched
+    with torch.no_grad():
+        xs = (se.pre_lstm(batch["fhr_up_ph"]),
+              te.pre_lstm(batch["fhr_st"], batch["fhr_ph"]))
+    lstms = (se.lstm, te.lstm)
+    cudnn = []
+    for lstm, x in zip(lstms, xs):
+        H, L = lstm.hidden_size, lstm.num_layers
+        ref = torch.nn.LSTM(x.shape[-1], H, L, batch_first=True).to(
+            device, dtype)
+        with torch.no_grad():
+            for l in range(L):
+                p = lambda name: getattr(ref, f"{name}_l{l}")
+                p("weight_ih").copy_(getattr(lstm, f"w_ih_{l}").t())
+                p("weight_hh").copy_(getattr(lstm, f"w_hh_{l}").t())
+                p("bias_ih").copy_(getattr(lstm, f"bias_{l}"))
+                p("bias_hh").zero_()
+        ref.flatten_parameters()
+        cudnn.append(ref)
+    cots = None
+
+    def ours(grad, recurrence=wavefront_recurrence):
+        with torch.set_grad_enabled(grad):
+            outs = run_lstm_streams([l(x) for l, x in zip(lstms, xs)],
+                                    recurrence)
+        return [(y, h, c) for y, (h, c) in outs]
+
+    def theirs(grad):
+        with torch.set_grad_enabled(grad):
+            return [(y, h, c) for y, (h, c) in (r(x.to(dtype)) for r, x in
+                                                zip(cudnn, xs))]
+
+    def loss(outs):
+        return sum((o.float() * w).sum() for os_, ws in zip(outs, cots)
+                   for o, w in zip(os_, ws))
+    got, lib = ours(False), theirs(False)
+    plain = max((a.float() - b.float()).abs().max().item() for os_, ps in zip(
+        got, ours(False, wavefront_fwd_plain)) for a, b in zip(os_, ps))
+    plain_tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    cots = [[torch.randn(o.shape, generator=gen, device=device) for o in os_]
+            for os_ in got]
+    err = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max().clamp_min(1e-30)).item()
+              for os_, ls in zip(got, lib) for a, b in zip(os_, ls))
+    timed = lambda fn: cuda_time_ms(fn, COVERAGE_TIMED_RUNS)
+    times = {"fwd": (timed(lambda: ours(False)), timed(lambda: theirs(False))),
+             "train": (timed(lambda: loss(ours(True)).backward()),
+                       timed(lambda: loss(theirs(True)).backward()))}
+    log(f"{label}: the encoder LSTMs alone, B={COVERAGE_BATCH}: serving "
+        f"forward {times['fwd'][0]!r} ms, cuDNN {times['fwd'][1]!r} ms; "
+        f"forward and backward {times['train'][0]!r} ms, cuDNN "
+        f"{times['train'][1]!r} ms; cuDNN's outputs against ours "
+        f"max-abs/max {err!r} (bar {LIBRARY_REL_TOL[dtype]}); ours against "
+        f"the plain recurrence in the same groups max-abs {plain!r} (bar "
+        f"{plain_tol}) ({card()})")
+    return times, err, plain <= plain_tol
+
+
+def coverage_phase(device):
+    """Phase 15: SeqVaeTeb at LSTM widths the kernels take only padded
+    (lstm_hidden_dim 5, 60, 100) or in depth groups (512), fp32 and bf16.
+    Returns the kernel entry points' launches over the phase's model runs
+    (serving forwards, train steps, the captured run; the comparisons with
+    plain versions excluded) and {(H, dtype): the numbers PERF.md
+    reports}."""
+    import copy
+    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
+                                   WindowFrontend, init_parameters,
+                                   production_frontend)
+    from vae_teb_tpu_torch.models import LSTM, run_lstm_streams
+    from vae_teb_tpu_torch.models.blocks import padded_width
+    t_phase = time.perf_counter()
+    failed, main_path, report = [], Counter(), {}
+    # (a) the padded shapes at the kernels: two 4-layer streams, K=303
+    for h in COVERAGE_PADDED:
+        cases = tuple(((4, 4), COVERAGE_BATCH, dt, True)
+                      for dt in (torch.float32, torch.bfloat16))
+        try:
+            report[("kernels", h)] = check_kernels(
+                device, 300, h, cases, {torch.float32: LIBRARY_REL_TOL[
+                    torch.float32]}, pad_to=padded_width(h), plain_runs=0,
+                runs=COVERAGE_TIMED_RUNS)
+        except AssertionError as e:
+            failed.append(f"(a) H={h}: {e}")
+    log(f"coverage (a) took {time.perf_counter() - t_phase:.1f} s")
+    t_part = time.perf_counter()
+
+    frontend = WindowFrontend(production_frontend(device))
+    gen = torch.Generator(device=device).manual_seed(15)
+    wide = init_parameters(SeqVaeTeb(lstm_hidden_dim=COVERAGE_WIDE),
+                           seed=INIT_SEED)
+    raw_len = wide.decoder.raw_len
+    batch = _coefficient_batches(frontend, gen, 1, COVERAGE_BATCH, raw_len,
+                                 device)[0]
+    eps = torch.randn((COVERAGE_BATCH, raw_len // 16, 32), generator=gen,
+                      device=device)
+    beta = 1e-5
+    # (a) and (b): serving and a train step of SeqVaeTeb at each width
+    for h in COVERAGE_PADDED + (COVERAGE_WIDE,):
+        fp32 = _at_width(wide, h).to(device)   # copies are made on the card
+        fp32_plain = None
+        for dtype in (torch.float32, torch.bfloat16):
+            model = fp32 if dtype == torch.float32 else _at_width(
+                fp32, h, dtype).to(device)
+            label = f"coverage SeqVaeTeb(lstm_hidden_dim={h}) {str(dtype)[6:]}"
+            groups, n, plain, grads = _model_runs(
+                device, model, frontend.frontend, batch, eps, beta, label,
+                failed, fp32_plain, both_ways=(
+                    h == COVERAGE_WIDE and dtype == torch.float32))
+            main_path.update(n)
+            report[(h, dtype)] = {"groups": groups, "launches": dict(n)}
+            if h == COVERAGE_WIDE:
+                _hoisting(device, model, frontend.frontend, batch, eps, beta,
+                          plain, grads, fp32_plain, label, failed)
+            fp32_plain = plain
+            del grads
+            if h != COVERAGE_WIDE:
+                continue
+            times, lib_err, plain_ok = _lstm_times(device, model, batch,
+                                                   gen, label)
+            report[(h, dtype)].update(lstm_times=times, cudnn_err=lib_err)
+            if not plain_ok:
+                failed.append(f"{label}: the encoder LSTMs' kernels against "
+                              f"the plain recurrence")
+            if dtype == torch.float32 and not lib_err <= LIBRARY_REL_TOL[
+                    dtype]:
+                failed.append(f"{label}: cuDNN yardstick {lib_err}")
+            # each group's kernels alone: check_kernels at the group's
+            # shape, with times, the bound and cuDNN at that shape
+            shapes = sorted({tuple(l1 - l0 for _, l0, l1 in g)
+                             for g in groups})
+            try:
+                report[(h, dtype)]["groups_kernels"] = check_kernels(
+                    device, 300, h, tuple((d, COVERAGE_BATCH, dtype, True)
+                                          for d in shapes),
+                    {torch.float32: LIBRARY_REL_TOL[torch.float32]},
+                    plain_runs=0, runs=COVERAGE_TIMED_RUNS)
+            except AssertionError as e:
+                failed.append(f"(b) {label} groups: {e}")
+        log(f"coverage H={h} took {time.perf_counter() - t_part:.1f} s")
+        t_part = time.perf_counter()
+
+    # (c) one replay of the wide fp32 step against three eager steps
+    t = Trainer(copy.deepcopy(wide), TrainerConfig(steps_per_execution=2),
+                device)
+    before = _entry_counts()
+    t.train_multi_step(_stack([batch, batch]), beta)   # eager, then capture
+    t.train_multi_step(_stack([batch]), beta)          # one replay
+    torch.cuda.synchronize()
+    captured = _captured([t])
+    main_path.update(_entry_counts() - before)   # replays' launches included
+    failed += _replay_against_eager(
+        t, batch, beta, f"coverage (c) SeqVaeTeb(lstm_hidden_dim="
+        f"{COVERAGE_WIDE}) fp32, one replay from a captured run's state", 2)
+    # a replay launches what the eager step launched
+    want = {k: n for k, n in report[(COVERAGE_WIDE, torch.float32)][
+        "launches"].items() if "_fwd_res_" in k or "_bwd_" in k}
+    log(f"coverage (c): the replay launched {dict(captured)} (expected "
+        f"{want} a replay)")
+    if dict(captured) != want:
+        failed.append(f"(c) the replay launched {dict(captured)}, expected "
+                      f"{want}")
+    report["captured"] = dict(captured)
+    del t
+    torch.cuda.empty_cache()
+
+    # (d) a unit no launch takes raises, with the limit, and runs nothing
+    lstm = init_parameters(LSTM(20, COVERAGE_REFUSED, 1), seed=INIT_SEED).to(
+        device)
+    before = _entry_counts()
+    try:
+        run_lstm_streams([lstm(torch.randn((2, 4, 20), generator=gen,
+                                           device=device))])
+        failed.append(f"(d) fp32 H={COVERAGE_REFUSED} did not raise")
+    except ValueError as e:
+        log(f"coverage (d) fp32 H={COVERAGE_REFUSED} raises: {e}")
+        if "shared memory" not in str(e):
+            failed.append(f"(d) the message names no limit: {e}")
+    if _entry_counts() != before:
+        failed.append("(d) a refused shape launched a kernel")
+    log(f"phase 15 launches: {dict(main_path)}; took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("coverage checks failed:\n" + "\n".join(failed))
+    return main_path, report
+
+
 def main(argv) -> int:
     kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
     grid_only, parallel_only = argv == ["--grid"], argv == ["--parallel"]
-    capture_only = argv == ["--capture"]
+    capture_only, coverage_only = argv == ["--capture"], argv == ["--coverage"]
     if argv and not (kernels_only or serve_only or grid_only
-                     or parallel_only or capture_only):
+                     or parallel_only or capture_only or coverage_only):
         print("usage: chip_smoke.py [--kernels | --serve | --grid | "
-              "--parallel | --capture]", file=sys.stderr)
+              "--parallel | --capture | --coverage]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3667,6 +4147,9 @@ def main(argv) -> int:
     if capture_only:          # phase 14 alone
         capture_phase(device)
         return 0
+    if coverage_only:         # phase 15 alone
+        coverage_phase(device)
+        return 0
     check_residency(device)
 
     kernels = check_kernels(device)
@@ -3684,6 +4167,7 @@ def main(argv) -> int:
     variant_launches = variants_phase(device)
     parallel_launches = parallel_phase(device)
     captured = capture_phase(device)
+    coverage, _ = coverage_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -3717,6 +4201,10 @@ def main(argv) -> int:
             "captured_launches": {
                 dt: captured.get(bf16_entry.replace("_bf16", f"_{dt}"), 0)
                 for dt in ("f32", "bf16")},
+            # phase 15: the padded and depth-grouped models' runs
+            "coverage_launches": {
+                dt: coverage.get(bf16_entry.replace("_bf16", f"_{dt}"), 0)
+                for dt in ("f32", "bf16")},
             # phase 13, per world and rank: this entry's fp32 launches
             "parallel_launches": {
                 world: sum(n for e, n in seen.items() if e.split(" B=")[0]
@@ -3740,6 +4228,8 @@ def main(argv) -> int:
             "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
             "launches": variant_launches.get(f"{entry}_f32", 0),
             "captured_launches": {dt: captured.get(f"{entry}_{dt}", 0)
+                                  for dt in ("f32", "bf16")},
+            "coverage_launches": {dt: coverage.get(f"{entry}_{dt}", 0)
                                   for dt in ("f32", "bf16")},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,

@@ -28,11 +28,21 @@ of one unit, the units handing each step over through per-unit step flags
 `wavefront_grid_{fwd,fwd_res,bwd}_{f32,bf16}`, counted in the same
 `entry_launches` and in the same totals.
 
+The kernels refuse a hidden size that is not a multiple of 8, and a stack
+whose grid CTAs the card cannot hold at once. The model never hands them
+either: it packs each unit zero-padded to a multiple of 8
+(`models.blocks.padded_width`), and runs a stack too wide for one launch
+as depth groups, runs of consecutive layers each launched alone
+(`depth_groups`, `wavefront_groups`). A unit that fits no launch (its
+weight slice over a CTA's shared memory, or its own CTAs over the card's
+residency) raises.
+
 Inside a CUDA-graph capture a launch is recorded, not run, and reads no
 host value that a replay would freeze: the shape caches `_held`,
-`_grid_held`, `_indices` and the built libraries are filled by an eager
-launch of the same shape first; the grid kernels' step flags are zeroed on
-the stream, which the graph replays; the launchers' cudaFuncSetAttribute
+`_grid_held`, `_indices`, `_groups` and the built libraries are filled by
+an eager launch of the same shape first; the grid kernels' step flags are
+zeroed on the stream, which the graph replays; the launchers'
+cudaFuncSetAttribute
 is accepted during a capture, and the cluster-dimension and cooperative
 launch attributes are recorded with the kernel node (an H100, torch
 2.11.0+cu128, CUDA 12.8). `launch_counts` and `add_launch_counts` let a
@@ -286,6 +296,92 @@ def _card_grid_resident(device: torch.device, dtype: torch.dtype
             _grid_held[key] = n
         return _grid_held[key]
     return held
+
+
+# A depth group: (stream, first layer, end layer) for each stream it holds
+Group = Tuple[Tuple[int, int, int], ...]
+
+
+def depth_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
+                 grid_resident: Optional[Callable[[int, int, int, int], int]]
+                 = None) -> Tuple[Group, ...]:
+    """Partition a stack of LSTM streams (`depths` layers each, hidden
+    size H, a multiple of 8) into the fewest runs of consecutive layers
+    whose units all fit one launch, each run one wavefront of its own.
+
+    Layer l of every stream goes in one group (the streams are
+    independent); a group of layers [l0, l1) holds, for every stream
+    deeper than l0, its layers [l0, min(depth, l1)). Where even one layer
+    of all streams fits no launch, each stream is partitioned alone,
+    stream after stream. A run fits when `_launch_plan` takes its units
+    at 32 rows (the grid kernels' most rows a pass, so any batch fits
+    what 32 rows fit: the partition never depends on B), with
+    `grid_resident` as `_launch_plan` takes it. Greedy is fewest: a run
+    inside a run that fits fits too. Raises when one unit fits no launch,
+    naming the limit it passes (shared memory or the CTAs the card
+    holds), the shape and the dtype."""
+    depths = tuple(depths)
+    tried: Dict[int, Optional[str]] = {}
+
+    def refused(U):   # why U units fit no launch, or None
+        if U not in tried:
+            try:
+                _launch_plan(_GRID_ROWS, U, H, dtype,
+                             grid_resident=grid_resident)
+                tried[U] = None
+            except ValueError as e:
+                tried[U] = str(e)
+        return tried[U]
+
+    def runs(streams):   # greedy runs of layers over (stream, depth) pairs
+        units = lambda l0, l1: sum(max(0, min(d, l1) - l0) for _, d in streams)
+        out, l0, D = [], 0, max(d for _, d in streams)
+        while l0 < D:
+            l1 = l0 + 1
+            while l1 < D and refused(units(l0, l1 + 1)) is None:
+                l1 += 1
+            out.append(tuple((s, l0, min(d, l1)) for s, d in streams
+                             if d > l0))
+            l0 = l1
+        return out
+
+    streams = list(enumerate(depths))
+    if refused(len(depths)) is None:
+        return tuple(runs(streams))
+    why = refused(1)
+    if why is not None:
+        limit = ("its CTAs are more than the card holds at once"
+                 if "the card holds" in why else
+                 f"its weight slice is over the {_SMEM_LIMIT} bytes of shared "
+                 f"memory of a CTA at every column split")
+        raise ValueError(f"one LSTM unit of hidden size {H} in "
+                         f"{str(dtype)[6:]} fits no wavefront launch: "
+                         f"{limit} ({why})")
+    return tuple(g for s in streams for g in runs([s]))
+
+
+_groups: Dict[tuple, Tuple[Group, ...]] = {}
+
+
+def wavefront_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
+                     device: torch.device) -> Tuple[Group, ...]:
+    """`depth_groups` on `device`: on the CPU one group of every layer (the
+    plain recurrence takes any stack); on a card the partition its
+    residency allows (`_card_grid_resident`), computed at the first call
+    of a shape and cached, so that a CUDA-graph capture of a step, which
+    may not ask the card anything a replay would skip, only reads it."""
+    depths = tuple(depths)
+    if device.type != "cuda":
+        return (tuple((s, 0, d) for s, d in enumerate(depths)),)
+    key = (depths, H, dtype, device)
+    if key not in _groups:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the depth groups of {depths} layers of H={H} "
+                               f"are not known yet: run the shape eagerly "
+                               f"once before capturing it")
+        _groups[key] = depth_groups(depths, H, dtype,
+                                    _card_grid_resident(device, dtype))
+    return _groups[key]
 
 
 def unit_blocks(W_eff: torch.Tensor, lvec: torch.Tensor

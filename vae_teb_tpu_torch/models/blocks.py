@@ -24,7 +24,11 @@ The LSTMs run in the wavefront schedule only: all layers of all fused
 streams advance as one staircase recurrence whose step is one product with
 a packed block-bidiagonal weight (see `run_lstm_streams`). The recurrence
 is `kernels.wavefront_recurrence`: CUDA kernels on the card (forward, and
-the reverse wavefront for gradients) and plain PyTorch on the CPU.
+the reverse wavefront for gradients) and plain PyTorch on the CPU. Every
+hidden size runs: a unit packs at H rounded up to a multiple of 8 with
+exact zero padding (`padded_width`), and on the card a stack too wide for
+one launch runs in depth groups chained through hoisted input
+projections (`kernels.wavefront.wavefront_groups`).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels import wavefront as _wavefront
 from ..kernels import wavefront_recurrence
 from ..parallel.collectives import all_reduce_sum, copy_to_group, gather_columns
 
@@ -367,6 +372,17 @@ def _wavefront_meta(operands):
     return H, depths, offsets, U, D, lvec
 
 
+def padded_width(H: int) -> int:
+    """The width a unit of hidden size H takes in the packed wavefront:
+    H rounded up to a multiple of 8 (the kernels' 16-byte row copies and
+    their CTAs' columns). Zero padding is exact: a padded column has zero
+    weights, bias, input and initial state, so its gates are 0, its c
+    stays 0.5 * 0 + 0.5 * tanh(0) = 0 and its h 0.5 * tanh(0) = 0 at every
+    step, and its weight rows feed nothing; in the reverse wavefront its
+    dh, dc and dgates stay 0 by the same induction."""
+    return -(-H // 8) * 8
+
+
 _lvecs: Dict[Tuple, torch.Tensor] = {}
 
 
@@ -385,83 +401,68 @@ def _lvec_like(lvec: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return _lvecs[key]
 
 
-def _wavefront_pack(operands, H, depths, offsets, U):
+def _wavefront_pack(operands, H, depths, offsets, U, Hp=None):
     """Pack per-unit weights into the block-bidiagonal wavefront matrix.
 
-    W_eff is (U*H, 4*U*H): row block v (unit v's h columns in the packed
-    state) holds W_hh[v] at unit v's gate columns and, when unit v+1 is a
-    deeper layer of the same stream, W_ih[v+1] at unit v+1's gate columns,
-    so h_cat @ W_eff gives every unit's recurrent and inter-layer input in
-    one product. Columns are gate-major: gate q of unit u lives at
-    [q*U*H + u*H, q*U*H + (u+1)*H). Also returns the gate-major biases of
-    the layers >= 1 (layer 0's bias rides in xs).
+    W_eff is (U*Hp, 4*U*Hp), Hp the padded width (`padded_width`; H when
+    None): row block v (unit v's h columns in the packed state) holds
+    W_hh[v] at unit v's gate columns and, when unit v+1 is a deeper layer
+    of the same stream, W_ih[v+1] at unit v+1's gate columns, so h_cat @
+    W_eff gives every unit's recurrent and inter-layer input in one
+    product. Columns are gate-major: gate q of unit u lives at
+    [q*U*Hp + u*Hp, q*U*Hp + (u+1)*Hp), its first H real. Also returns the
+    gate-major biases of the layers >= 1 (layer 0's bias rides in xs).
     """
+    Hp = H if Hp is None else Hp
     ref = operands[0]["xs"]
-    UH = U * H
+    UH = U * Hp
     W_eff = torch.zeros((UH, 4 * UH), dtype=ref.dtype, device=ref.device)
-    blocks = W_eff.view(U, H, 4, U, H)
-    b4 = torch.zeros((4, U, H), dtype=ref.dtype, device=ref.device)
+    blocks = W_eff.view(U, Hp, 4, U, Hp)
+    b4 = torch.zeros((4, U, Hp), dtype=ref.dtype, device=ref.device)
     for s, op in enumerate(operands):
         for l in range(depths[s]):
             u = offsets[s] + l
-            blocks[u, :, :, u, :] = op["w_hh"][l].reshape(H, 4, H)
+            blocks[u, :H, :, u, :H] = op["w_hh"][l].reshape(H, 4, H)
             if l:
-                blocks[u - 1, :, :, u, :] = op["w_ih_rest"][l - 1].reshape(H, 4, H)
-                b4[:, u, :] = op["b_rest"][l - 1].reshape(4, H)
+                blocks[u - 1, :H, :, u, :H] = op["w_ih_rest"][l - 1].reshape(
+                    H, 4, H)
+                b4[:, u, :H] = op["b_rest"][l - 1].reshape(4, H)
     return W_eff, b4.reshape(4 * UH)
 
 
-def _wavefront_xs(operands, H, depths, offsets, U, K, S):
-    """(K, B, 4*U*H) additive gate input: each stream's pre-projected xs at
+def _wavefront_xs(operands, H, depths, offsets, U, K, S, Hp=None):
+    """(K, B, 4*U*Hp) additive gate input: each stream's pre-projected xs at
     its layer-0 unit's gate-major columns for k < S, zeros elsewhere."""
+    Hp = H if Hp is None else Hp
     ref = operands[0]["xs"]
     B = ref.shape[1]
-    xs = torch.zeros((K, B, 4, U, H), dtype=ref.dtype, device=ref.device)
+    xs = torch.zeros((K, B, 4, U, Hp), dtype=ref.dtype, device=ref.device)
     for s, op in enumerate(operands):
-        xs[:S, :, :, offsets[s], :] = op["xs"].reshape(S, B, 4, H)
-    return xs.reshape(K, B, 4 * U * H)
+        xs[:S, :, :, offsets[s], :H] = op["xs"].reshape(S, B, 4, H)
+    return xs.reshape(K, B, 4 * U * Hp)
 
 
-def _wavefront_unpack(h_fin, c_fin, h_seq, operands):
+def _wavefront_unpack(h_fin, c_fin, h_seq, operands, Hp=None):
     """Slice the packed outputs back to per stream (ys (S, B, H), h_f
-    tuple, c_f tuple): a stream's top layer finishes step t at step
-    t + depth - 1."""
+    tuple, c_f tuple), each unit's first H of its Hp columns: a stream's
+    top layer finishes step t at step t + depth - 1."""
     H, depths, offsets, U, D, _ = _wavefront_meta(operands)
+    Hp = H if Hp is None else Hp
     S = operands[0]["xs"].shape[0]
+    cols = lambda u: slice(u * Hp, u * Hp + H)
     outs = []
     for s in range(len(operands)):
         d, off = depths[s], offsets[s]
-        top = off + d - 1
-        ys = h_seq[d - 1:d - 1 + S, :, top * H:(top + 1) * H]
-        h_f = tuple(h_fin[:, (off + l) * H:(off + l + 1) * H] for l in range(d))
-        c_f = tuple(c_fin[:, (off + l) * H:(off + l + 1) * H] for l in range(d))
+        ys = h_seq[d - 1:d - 1 + S, :, cols(off + d - 1)]
+        h_f = tuple(h_fin[:, cols(off + l)] for l in range(d))
+        c_f = tuple(c_fin[:, cols(off + l)] for l in range(d))
         outs.append((ys, h_f, c_f))
     return outs
 
 
-def run_lstm_streams(streams: Sequence[LSTMStream],
-                     recurrence: Callable = wavefront_recurrence
-                     ) -> List[Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
-    """Run independent prepared LSTM streams as ONE wavefront recurrence.
-
-    Unit (stream, layer l) at step k computes time t = k - l from its own
-    h and from layer l-1's h of step k-1, so every unit of every stream
-    advances in the same step: K = S + D - 1 steps in all (D the deepest
-    stream), each one product with the packed W_eff.
-
-    `recurrence` is the wavefront recurrence, called as
-    recurrence(W_eff, b_packed, xs_wave, h0, c0, lvec, S) -> (h_seq, h_fin,
-    c_fin); the default, `kernels.wavefront_recurrence`, dispatches by
-    device to the CUDA kernels or their plain versions and differentiates
-    through the reverse wavefront. Autograd reaches the per-layer weights
-    through the packing (`_wavefront_pack`, `_wavefront_xs` write them into
-    slices of zero tensors) and the unpack slices. Returns, per stream,
-    (ys (B, S, H), (h_stack, c_stack)) with the final states stacked
-    (num_layers, B, H).
-    """
-    hs = {st.w_hh[0].shape[0] for st in streams}
-    if len(hs) != 1:
-        raise ValueError(f"the wavefront needs one shared hidden size, got {hs}")
+def _run_group(streams: Sequence[LSTMStream], recurrence: Callable):
+    """Run streams as ONE wavefront recurrence (one launch on the card):
+    per stream (ys (B, S, H), (h_stack, c_stack)), see `run_lstm_streams`."""
     operands = [{"xs": st.x_proj.transpose(0, 1),
                  "w_ih_rest": st.w_ih[1:],
                  "w_hh": st.w_hh,
@@ -469,17 +470,76 @@ def run_lstm_streams(streams: Sequence[LSTMStream],
                  "init_h": st.init[0],
                  "init_c": st.init[1]} for st in streams]
     H, depths, offsets, U, D, lvec = _wavefront_meta(operands)
+    Hp = padded_width(H)
     S = operands[0]["xs"].shape[0]
     K = S + D - 1
-    W_eff, b_packed = _wavefront_pack(operands, H, depths, offsets, U)
-    xs_wave = _wavefront_xs(operands, H, depths, offsets, U, K, S)
-    h0 = torch.cat([h for op in operands for h in op["init_h"]], dim=-1)
-    c0 = torch.cat([c for op in operands for c in op["init_c"]], dim=-1)
+    W_eff, b_packed = _wavefront_pack(operands, H, depths, offsets, U, Hp)
+    xs_wave = _wavefront_xs(operands, H, depths, offsets, U, K, S, Hp)
+    pad = lambda x: x if Hp == H else F.pad(x, (0, Hp - H))
+    h0 = torch.cat([pad(h) for op in operands for h in op["init_h"]], dim=-1)
+    c0 = torch.cat([pad(c) for op in operands for c in op["init_c"]], dim=-1)
     h_seq, h_fin, c_fin = recurrence(
         W_eff, b_packed, xs_wave, h0.contiguous(), c0.contiguous(),
         _lvec_like(lvec, xs_wave), S)
     return [(ys.transpose(0, 1), (torch.stack(h_f), torch.stack(c_f)))
-            for ys, h_f, c_f in _wavefront_unpack(h_fin, c_fin, h_seq, operands)]
+            for ys, h_f, c_f in _wavefront_unpack(h_fin, c_fin, h_seq,
+                                                  operands, Hp)]
+
+
+def run_lstm_streams(streams: Sequence[LSTMStream],
+                     recurrence: Callable = wavefront_recurrence
+                     ) -> List[Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
+    """Run independent prepared LSTM streams as wavefront recurrences: one,
+    or on the card as many as the stack needs launches.
+
+    Unit (stream, layer l) at step k computes time t = k - l from its own
+    h and from layer l-1's h of step k-1, so every unit of every stream
+    advances in the same step: K = S + D - 1 steps in all (D the deepest
+    stream), each one product with the packed W_eff. Every unit is packed
+    at `padded_width(H)` columns, which the kernels take for any H.
+
+    `recurrence` is the wavefront recurrence, called as
+    recurrence(W_eff, b_packed, xs_wave, h0, c0, lvec, S) -> (h_seq, h_fin,
+    c_fin); the default, `kernels.wavefront_recurrence`, dispatches by
+    device to the CUDA kernels or their plain versions and differentiates
+    through the reverse wavefront. Autograd reaches the per-layer weights
+    through the packing (`_wavefront_pack`, `_wavefront_xs` write them into
+    slices of zero tensors) and the unpack slices.
+
+    A stack too wide for one launch runs in depth groups
+    (`kernels.wavefront.wavefront_groups`: one group on the CPU): runs of
+    consecutive layers, in order, each an ordinary wavefront of its own. A
+    group starting at layer l0 > 0 takes its first layer's input as a
+    hoisted projection of the group below's output, ys @ W_ih[l0] +
+    b[l0] in the compute dtype, as layer 0's is hoisted, and its own
+    layers' initial state; autograd runs the groups' reverse wavefronts
+    in reverse order. Returns, per stream, (ys (B, S, H), (h_stack,
+    c_stack)) with the final states stacked (num_layers, B, H).
+    """
+    hs = {st.w_hh[0].shape[0] for st in streams}
+    if len(hs) != 1:
+        raise ValueError(f"the wavefront needs one shared hidden size, got {hs}")
+    ref = streams[0].x_proj
+    groups = _wavefront.wavefront_groups(
+        [len(st.w_hh) for st in streams], padded_width(hs.pop()), ref.dtype,
+        ref.device)
+    ys = [None] * len(streams)
+    finals = [([], []) for _ in streams]
+    for group in groups:
+        parts = []
+        for s, l0, l1 in group:
+            st = streams[s]
+            x_proj = (st.x_proj if l0 == 0
+                      else ys[s] @ st.w_ih[l0] + st.biases[l0])
+            parts.append(LSTMStream(x_proj, st.w_ih[l0:l1], st.w_hh[l0:l1],
+                                    st.biases[l0:l1],
+                                    (st.init[0][l0:l1], st.init[1][l0:l1])))
+        for (s, _, _), (y, (h, c)) in zip(group, _run_group(parts,
+                                                            recurrence)):
+            ys[s] = y
+            finals[s][0].append(h)
+            finals[s][1].append(c)
+    return [(y, (torch.cat(h), torch.cat(c))) for y, (h, c) in zip(ys, finals)]
 
 
 class LSTM(nn.Module):
