@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving path, training step, training entry
 point, exact frontend, dataset ETL, evaluation, streaming, the forecast,
 predict-st and classifier families, data- and tensor-parallel training,
-captured train steps, and LSTM widths that take the kernels zero-padded or
-in depth groups, on an NVIDIA GPU.
+captured train steps, and LSTM widths that take the kernels zero-padded,
+in depth groups or with their weights streamed, on an NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repository root, one CUDA device
     python3 chip_smoke.py --kernels   # phases 1-3 only, printing no result
@@ -204,8 +204,9 @@ Phases, each of which raises on failure (exit code 1):
      as (a): a graph a micro-step, each replayed twice, the count and the
      micro-step exact, one replay of each micro-step from one state;
      `--capture` runs this phase alone;
- 15. LSTM shapes the kernels take only zero-padded (H not a multiple of 8)
-     or in depth groups (stacks too wide for one launch), through the
+ 15. LSTM shapes the kernels take only zero-padded (H not a multiple of 8),
+     in depth groups (stacks too wide for one launch) or with streamed
+     weights (units too wide for a CTA's shared memory), through the
      model's own packing (`models.blocks.run_lstm_streams`): (a) two
      4-layer streams of H = 5, 60, 100, padded to 8, 64, 104 (cluster,
      cluster, grid kernels), K=303, B=32, fp32 and bf16: the three kernels
@@ -226,8 +227,19 @@ Phases, each of which raises on failure (exit code 1):
      a train step captured (steps_per_execution 2) and one replay from
      that run's state against three eager steps (phase 14's bar and
      controls), each replay launching one kernel a group each way; (d)
-     fp32 H=1024 raises before any launch, naming the shared memory;
-     `--coverage` runs this phase alone;
+     units over a CTA's shared memory, on the streamed grid kernels: the
+     three streamed entries against their plain versions at (depths, H)
+     = (1, 1024), (1+1, 1024), (2+2, 1024: two feed blocks) fp32 and
+     (1+1, 1536) bf16, B=32, K=303, at phase 3's bars, with times
+     (median of 5), plain times, bound, cuDNN and the weight bytes a step
+     streams with the rate achieved; the plan the card chose at (1,
+     1024) against chunks of 8 and 16 k-tiles and clusters of 1 (forward
+     and reverse times); then SeqVaeTeb(lstm_hidden_dim=1024)
+     fp32 and 1536 bf16 as (a, b) (serving forward and train step against
+     the plain recurrence in the same groups, one streamed launch a group
+     each way, every launch streamed), the encoder LSTMs alone against
+     cuDNN, and at 1024 fp32 (c)'s captured step, one replay against
+     three eager steps; `--coverage` runs this phase alone;
  16. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start, the serving forward's launches
@@ -237,8 +249,11 @@ Phases, each of which raises on failure (exit code 1):
      storage type (`captured_launches`), and phase 15's model runs', per
      storage type (`coverage_launches`); the grid kernels' rows at (3,
      256), B=32, fp32, with their errors, times, cuDNN times and bounds at
-     every phase-12 shape and storage type, `by_shape`), and last {"ok":
-     true, "device": {...}}.
+     every phase-12 shape and storage type, `by_shape`; the streamed
+     entries' rows at (1+1, 1024), B=32, fp32, launched by phase 15 (d)'s
+     model runs and its captured step's replay, with every (d) kernel
+     shape's numbers, `by_shape`), and last {"ok": true, "device":
+     {...}}.
 """
 
 import json
@@ -706,9 +721,9 @@ def check_kernels(device, S=300, H=64, cases=KERNEL_CASES,
             lib = {"fwd": lib_fwd, "fwd_res": lib_fwd, "bwd": lib_bwd}
         except RuntimeError as e:     # a type cuDNN's LSTM does not take
             log(f"cuDNN LSTM yardstick {label}: not available ({e})")
-        # the grid kernels run fp32 products on the tensor cores (3xTF32),
-        # the cluster kernels on the CUDA cores
-        grid = _launch_plan(b, U, Hp, dtype).kind == "grid"
+        # the grid kernels, resident or streamed, run fp32 products on the
+        # tensor cores (3xTF32), the cluster kernels on the CUDA cores
+        grid = _launch_plan(b, U, Hp, dtype).kind != "cluster"
         for kind in ("fwd", "fwd_res", "bwd"):
             bnd = bound(kind, b, K, S, U, H, n_feed, xs.element_size(), grid)
             results[(kind, depths, b, dtype)] += [lib[kind], bnd]
@@ -3693,7 +3708,16 @@ def _capture_cli(device, frontend, gen):
 # multiple of 8) and depth groups (stacks too wide for one launch)
 COVERAGE_PADDED = (5, 60, 100)   # hidden sizes padded to 8, 64, 104
 COVERAGE_WIDE = 512              # two 4-layer streams: 8 units too many
-COVERAGE_REFUSED = 1024          # fp32: one unit over the shared memory
+# (d): units over a CTA's shared memory, on the streamed grid kernels:
+# SeqVaeTeb(lstm_hidden_dim=1024) in fp32 and 1536 in bf16, and the kernels
+# alone at (depths, H, dtype): one unit, a group of one layer of both
+# streams, a group of two layers of both with their two feed blocks
+COVERAGE_STREAMED = ((1024, torch.float32), (1536, torch.bfloat16))
+COVERAGE_STREAMED_KERNELS = (((1,), 1024, torch.float32),
+                             ((1, 1), 1024, torch.float32),
+                             ((2, 2), 1024, torch.float32),
+                             ((1, 1), 1536, torch.bfloat16))
+COVERAGE_STREAMED_PLAIN_RUNS = 3   # plain-version timings of (d)
 COVERAGE_BATCH = 32
 # phase 15's timed runs (median of 5, after a warm-up): it times 8 shapes
 # of kernels and cuDNN (bf16 cuDNN 20-63 ms a call) and the encoder LSTMs
@@ -3758,17 +3782,25 @@ def _model_runs(device, model, frontend, batch, eps, beta, label, failed,
     hp = padded_width(lstm.hidden_size)
     groups = wavefront.wavefront_groups((lstm.num_layers,) * 2, hp, dtype,
                                         device)
-    # each group's route: the grid kernels where the cluster plan refuses
-    plan = {g: wavefront._launch_plan(
+    # each group's route: the grid kernels where the cluster plan refuses,
+    # their streamed mode where no resident grid plan fits
+    plans = {g: wavefront._launch_plan(
         COVERAGE_BATCH, sum(l1 - l0 for _, l0, l1 in g), hp, dtype,
-        grid_resident=wavefront._card_grid_resident(device, dtype)).kind
+        grid_resident=wavefront._card_grid_resident(device, dtype),
+        stream_resident=wavefront._card_grid_resident(device, dtype,
+                                                      stream=True))
         for g in groups}
-    prefix = {"grid": "wavefront_grid_", "cluster": "wavefront_"}
-    n = Counter(prefix[plan[g]] for g in groups)
+    plan = {g: p.kind for g, p in plans.items()}
+    entry = lambda route, what: {
+        "cluster": f"wavefront_{what}_{kind}",
+        "grid": f"wavefront_grid_{what}_{kind}",
+        "stream": f"wavefront_grid_{what}_stream_{kind}"}[route]
+    n = Counter(plan[g] for g in groups)
+    log(f"{label}: the card's plans {sorted(set(plans.values()))}")
     coeffs = [batch[k] for k in ("fhr_st", "fhr_ph", "fhr_up_ph")]
     server = InferenceServer(copy.deepcopy(model), frontend, device)
     out, served = _launched(lambda: server.infer_coefficients(*coeffs))
-    want = {f"{p}fwd_{kind}": c for p, c in n.items()}
+    want = {entry(r, "fwd"): c for r, c in n.items()}
     server.model.recurrence = wavefront_fwd_plain
     plain = server.infer_coefficients(*coeffs)
     serve_err, serve_key = _rel_outputs(out, plain)
@@ -3804,8 +3836,8 @@ def _model_runs(device, model, frontend, batch, eps, beta, label, failed,
         finite = finite and all(torch.isfinite(v).all().item()
                                 for v in metrics.values())
         del m
-    step_want = {f"{p}fwd_res_{kind}": c for p, c in n.items()}
-    step_want.update({f"{p}bwd_{kind}": c for p, c in n.items()})
+    step_want = {entry(r, "fwd_res"): c for r, c in n.items()}
+    step_want.update({entry(r, "bwd"): c for r, c in n.items()})
     reports = {r: grad_report(grads["kernels"], grads[r]) for r in runs[1:]}
     bar = (GRAD_REL_TOL, GRAD_REL_TOL) if fp32 else (BF16_GRAD_REL_TOL,
                                                      BF16_GRAD_L2_TOL)
@@ -3972,18 +4004,113 @@ def _lstm_times(device, model, batch, gen, label):
     return times, err, plain <= plain_tol
 
 
+def _stream_plans(device, failed):
+    """(d): the streamed plan the card chose for one unit of H=1024 (fp32,
+    B=32, K=303) against plans it passed over, forced by stubbing the
+    planner's residency and chunk sizes for the call: chunks of 8 and 16
+    k-tiles, and clusters of 1. CUDA-event ms of the serving forward and
+    the reverse (median of COVERAGE_TIMED_RUNS), each plan's outputs held
+    to the plain versions at phase 3's fp32 bars. Returns {name: (plan,
+    fwd_ms, bwd_ms)}."""
+    from vae_teb_tpu_torch.kernels import (wavefront, wavefront_bwd,
+                                           wavefront_bwd_plain, wavefront_fwd,
+                                           wavefront_fwd_plain)
+    gen = torch.Generator().manual_seed(13)
+    S, H = 303, 1024
+    args = recurrence_inputs(gen, COVERAGE_BATCH, S, H, (1,), torch.float32,
+                             device)
+    W, _, xs, _, c0, lvec = args
+    _, _, _, gates, c_seq = wavefront_fwd_plain(*args, S, with_residuals=True)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(device)
+    bargs = (W, gates, c_seq, torch.cat([c0[None], c_seq[:-1]]),
+             rnd(S, COVERAGE_BATCH, H), rnd(COVERAGE_BATCH, H),
+             rnd(COVERAGE_BATCH, H), lvec)
+    want_f, want_b = wavefront_fwd_plain(*args, S), wavefront_bwd_plain(
+        *bargs, S)
+    chosen = wavefront._check("plan", args[:5], lvec, xs)
+    resident, ktiles = wavefront._card_grid_resident, wavefront._STREAM_KTILES
+    out = {}
+    for name, kts, cs in (("the plan", ktiles, chosen.cluster),
+                          ("chunks of 8 k-tiles", (8,), chosen.cluster),
+                          ("chunks of 16 k-tiles", (16, 8), chosen.cluster),
+                          ("clusters of 1", ktiles, 1)):
+        def forced(dev, dt, stream=False):
+            held = resident(dev, dt, stream)
+            return lambda N, CS, f, b: (held(N, CS, f, b) if stream and (
+                N, CS) == (chosen.cols, cs) else 0)
+        wavefront._card_grid_resident, wavefront._STREAM_KTILES = forced, kts
+        try:
+            plan = wavefront._check("plan", args[:5], lvec, xs)
+            got_f, got_b = wavefront_fwd(*args, S), wavefront_bwd(*bargs, S)
+            torch.cuda.synchronize()
+            ef = max((g - w).abs().max().item()
+                     for g, w in zip(got_f, want_f))
+            eb = max((g - w).abs().max().item() / w.abs().max().item()
+                     for g, w in zip(got_b, want_b))
+            fms = cuda_time_ms(lambda: wavefront_fwd(*args, S),
+                               COVERAGE_TIMED_RUNS)
+            bms = cuda_time_ms(lambda: wavefront_bwd(*bargs, S),
+                               COVERAGE_TIMED_RUNS)
+        finally:
+            wavefront._card_grid_resident = resident
+            wavefront._STREAM_KTILES = ktiles
+        log(f"coverage (d) one unit of H=1024 fp32, B={COVERAGE_BATCH}, "
+            f"K={S}, {name}: N={plan.cols}, clusters of {plan.cluster}, "
+            f"chunks {plan.fwd_chunk} / {plan.bwd_chunk} depths, "
+            f"{plan.fwd_bufs} / {plan.bwd_bufs} slots: forward {fms!r} ms "
+            f"(max-abs {ef!r}), reverse {bms!r} ms (of max {eb!r}) "
+            f"({card()})")
+        if not (ef <= FP32_TOL and eb <= BWD_FP32_TOL):
+            failed.append(f"(d) {name}: {ef}, {eb} against the plain "
+                          f"versions")
+        out[name] = (plan, fms, bms)
+    return out
+
+
+def _captured_step(device, model, batch, beta, label, launches, main_path,
+                   failed):
+    """A train step of `model` captured (steps_per_execution 2: two eager
+    steps, then the capture) and one replay from that run's state against
+    three eager steps (phase 14's bar and controls); the replay must launch
+    what the eager step launched (`launches`: the residual forward and
+    reverse entries of `_model_runs`). Adds the launches to `main_path`;
+    returns the replays' launches by entry point."""
+    import copy
+    from vae_teb_tpu_torch import Trainer, TrainerConfig
+    t = Trainer(copy.deepcopy(model), TrainerConfig(steps_per_execution=2),
+                device)
+    before = _entry_counts()
+    t.train_multi_step(_stack([batch, batch]), beta)   # eager, then capture
+    t.train_multi_step(_stack([batch]), beta)          # one replay
+    torch.cuda.synchronize()
+    captured = _captured([t])
+    main_path.update(_entry_counts() - before)   # replays' launches included
+    failed += _replay_against_eager(
+        t, batch, beta, f"{label}, one replay from a captured run's state", 2)
+    want = {k: n for k, n in launches.items()
+            if "_fwd_res_" in k or "_bwd_" in k}
+    log(f"{label}: the replay launched {dict(captured)} (expected {want} a "
+        f"replay)")
+    if dict(captured) != want:
+        failed.append(f"{label}: the replay launched {dict(captured)}, "
+                      f"expected {want}")
+    del t
+    torch.cuda.empty_cache()
+    return dict(captured)
+
+
 def coverage_phase(device):
     """Phase 15: SeqVaeTeb at LSTM widths the kernels take only padded
-    (lstm_hidden_dim 5, 60, 100) or in depth groups (512), fp32 and bf16.
+    (lstm_hidden_dim 5, 60, 100), in depth groups (512) or streamed (1024
+    fp32, 1536 bf16), fp32 and bf16.
     Returns the kernel entry points' launches over the phase's model runs
     (serving forwards, train steps, the captured run; the comparisons with
     plain versions excluded) and {(H, dtype): the numbers PERF.md
     reports}."""
     import copy
-    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
-                                   WindowFrontend, init_parameters,
-                                   production_frontend)
-    from vae_teb_tpu_torch.models import LSTM, run_lstm_streams
+    from vae_teb_tpu_torch import (InferenceServer, SeqVaeTeb, WindowFrontend,
+                                   init_parameters, production_frontend)
+    from vae_teb_tpu_torch.kernels import wavefront_fwd_plain
     from vae_teb_tpu_torch.models.blocks import padded_width
     t_phase = time.perf_counter()
     failed, main_path, report = [], Counter(), {}
@@ -4057,43 +4184,83 @@ def coverage_phase(device):
         t_part = time.perf_counter()
 
     # (c) one replay of the wide fp32 step against three eager steps
-    t = Trainer(copy.deepcopy(wide), TrainerConfig(steps_per_execution=2),
-                device)
-    before = _entry_counts()
-    t.train_multi_step(_stack([batch, batch]), beta)   # eager, then capture
-    t.train_multi_step(_stack([batch]), beta)          # one replay
-    torch.cuda.synchronize()
-    captured = _captured([t])
-    main_path.update(_entry_counts() - before)   # replays' launches included
-    failed += _replay_against_eager(
-        t, batch, beta, f"coverage (c) SeqVaeTeb(lstm_hidden_dim="
-        f"{COVERAGE_WIDE}) fp32, one replay from a captured run's state", 2)
-    # a replay launches what the eager step launched
-    want = {k: n for k, n in report[(COVERAGE_WIDE, torch.float32)][
-        "launches"].items() if "_fwd_res_" in k or "_bwd_" in k}
-    log(f"coverage (c): the replay launched {dict(captured)} (expected "
-        f"{want} a replay)")
-    if dict(captured) != want:
-        failed.append(f"(c) the replay launched {dict(captured)}, expected "
-                      f"{want}")
-    report["captured"] = dict(captured)
-    del t
-    torch.cuda.empty_cache()
+    report["captured"] = _captured_step(
+        device, wide, batch, beta, f"coverage (c) SeqVaeTeb(lstm_hidden_dim="
+        f"{COVERAGE_WIDE}) fp32", report[(COVERAGE_WIDE, torch.float32)][
+            "launches"], main_path, failed)
 
-    # (d) a unit no launch takes raises, with the limit, and runs nothing
-    lstm = init_parameters(LSTM(20, COVERAGE_REFUSED, 1), seed=INIT_SEED).to(
-        device)
-    before = _entry_counts()
-    try:
-        run_lstm_streams([lstm(torch.randn((2, 4, 20), generator=gen,
-                                           device=device))])
-        failed.append(f"(d) fp32 H={COVERAGE_REFUSED} did not raise")
-    except ValueError as e:
-        log(f"coverage (d) fp32 H={COVERAGE_REFUSED} raises: {e}")
-        if "shared memory" not in str(e):
-            failed.append(f"(d) the message names no limit: {e}")
-    if _entry_counts() != before:
-        failed.append("(d) a refused shape launched a kernel")
+    # (d) units over a CTA's shared memory: the streamed grid kernels alone,
+    # then the models that need them
+    t_part = time.perf_counter()
+    report["stream_kernels"] = {}
+    for depths, h, dtype in COVERAGE_STREAMED_KERNELS:
+        K = 303
+        try:
+            res = check_kernels(
+                device, K - max(depths) + 1, h,
+                ((depths, COVERAGE_BATCH, dtype, True),),
+                {torch.float32: LIBRARY_REL_TOL[torch.float32]},
+                plain_runs=COVERAGE_STREAMED_PLAIN_RUNS,
+                runs=COVERAGE_TIMED_RUNS)
+        except AssertionError as e:
+            failed.append(f"(d) streamed kernels {depths} H={h}: {e}")
+            continue
+        report["stream_kernels"][(depths, h, dtype)] = res
+        # the weights a step streams from L2 (or HBM): each unit's
+        # recurrent block and each feed block, H x 4H values
+        item = torch.empty((), dtype=dtype).element_size()
+        U, feeds = sum(depths), sum(d - 1 for d in depths)
+        step = (U + feeds) * h * 4 * h * item
+        for kind in ("fwd", "fwd_res", "bwd"):
+            ms = res[(kind, depths, COVERAGE_BATCH, dtype)][1]
+            log(f"coverage (d) streamed {kind} {depths} H={h} "
+                f"{str(dtype)[6:]}: {step} weight bytes a step, K={K}: "
+                f"{step * K / (ms * 1e-3) / 1e12!r} TB/s of weights "
+                f"({card()})")
+    report["stream_plans"] = _stream_plans(device, failed)
+    log(f"coverage (d) streamed kernels took "
+        f"{time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    coeffs = [batch[k] for k in ("fhr_st", "fhr_ph", "fhr_up_ph")]
+    for h, dtype in COVERAGE_STREAMED:
+        fp32 = _at_width(wide, h).to(device)
+        label = f"coverage (d) SeqVaeTeb(lstm_hidden_dim={h}) {str(dtype)[6:]}"
+        fp32_plain = None
+        if dtype == torch.float32:
+            model = fp32
+        else:    # the bf16 bar: the plain bf16 model's distance from fp32
+            server = InferenceServer(copy.deepcopy(fp32), frontend.frontend,
+                                     device)
+            server.model.recurrence = wavefront_fwd_plain
+            fp32_plain = server.infer_coefficients(*coeffs)
+            del server
+            model = _at_width(fp32, h, dtype).to(device)
+            del fp32
+        groups, n, _, grads = _model_runs(device, model, frontend.frontend,
+                                          batch, eps, beta, label, failed,
+                                          fp32_plain)
+        del grads
+        main_path.update(n)
+        report[(h, dtype)] = {"groups": groups, "launches": dict(n)}
+        if any("_stream_" not in k for k in n):
+            failed.append(f"{label}: a launch off the streamed kernels: "
+                          f"{dict(n)}")
+        times, lib_err, plain_ok = _lstm_times(device, model, batch, gen,
+                                               label)
+        report[(h, dtype)].update(lstm_times=times, cudnn_err=lib_err)
+        if not plain_ok:
+            failed.append(f"{label}: the encoder LSTMs' kernels against the "
+                          f"plain recurrence")
+        if dtype == torch.float32:
+            if not lib_err <= LIBRARY_REL_TOL[dtype]:
+                failed.append(f"{label}: cuDNN yardstick {lib_err}")
+            report["captured_stream"] = _captured_step(
+                device, model, batch, beta, label, report[(h, dtype)][
+                    "launches"], main_path, failed)
+        del model
+        torch.cuda.empty_cache()
+        log(f"coverage (d) H={h} took {time.perf_counter() - t_part:.1f} s")
+        t_part = time.perf_counter()
     log(f"phase 15 launches: {dict(main_path)}; took "
         f"{time.perf_counter() - t_phase:.1f} s")
     if failed:
@@ -4167,7 +4334,7 @@ def main(argv) -> int:
     variant_launches = variants_phase(device)
     parallel_launches = parallel_phase(device)
     captured = capture_phase(device)
-    coverage, _ = coverage_phase(device)
+    coverage, cov_report = coverage_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -4246,6 +4413,40 @@ def main(argv) -> int:
                     + [res[(key, d, 32, dt)][4][0]]
                 for (d, h), res in grid_kernels.items()
                 for dt in (torch.float32, torch.bfloat16)}})
+    # the streamed grid kernels at a group of one layer of both encoder
+    # streams of SeqVaeTeb(lstm_hidden_dim=1024), B=32, fp32, K=303; their
+    # launches are phase 15's model runs' and (d)'s captured step's replay
+    streamed = cov_report["stream_kernels"]
+    stream_case = ((1, 1), 1024, torch.float32)
+    for name, src, line, key, entry in (
+            ("wavefront_grid_fwd_stream", "wavefront_grid_fwd.cu", 80, "fwd",
+             "wavefront_grid_fwd_stream"),
+            ("wavefront_grid_fwd_stream_residuals", "wavefront_grid_fwd.cu",
+             80, "fwd_res", "wavefront_grid_fwd_res_stream"),
+            ("wavefront_grid_bwd_stream", "wavefront_grid_bwd.cu", 187, "bwd",
+             "wavefront_grid_bwd_stream")):
+        err, ms, plain_ms, library_ms, (bound_ms, bound_by) = streamed[
+            stream_case][(key, stream_case[0], 32, torch.float32)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"vae_teb_tpu_torch/kernels/{src}",
+            "replaces": f"vae_teb_tpu/models/wavefront_pallas.py:{line}",
+            "launches": coverage.get(f"{entry}_f32", 0),
+            "coverage_launches": {dt: coverage.get(f"{entry}_{dt}", 0)
+                                  for dt in ("f32", "bf16")},
+            "captured_launches": {
+                dt: cov_report["captured_stream"].get(f"{entry}_{dt}", 0)
+                for dt in ("f32", "bf16")},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            # (max_abs_err, ms, plain_ms, library_ms, bound_ms) at each of
+            # phase 15 (d)'s shapes, B=32
+            "by_shape": {
+                f"{'+'.join(map(str, d))} layers H={h} {str(dt)[6:]}":
+                    [res[(key, d, 32, dt)][i] for i in (0, 1, 2, 3)]
+                    + [res[(key, d, 32, dt)][4][0]]
+                for (d, h, dt), res in streamed.items()}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

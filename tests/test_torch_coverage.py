@@ -1,6 +1,7 @@
 """Every LSTM shape the JAX package runs: hidden sizes that are not a
-multiple of 8 (packed with exact zero padding) and stacks too wide for one
-launch (depth groups chained through hoisted input projections), against
+multiple of 8 (packed with exact zero padding), stacks too wide for one
+launch (depth groups chained through hoisted input projections) and units
+too wide for a CTA's shared memory (the streamed grid kernels), against
 the JAX package's LSTM and SeqVaeTeb (schedule "wavefront", its default
 XLA scan, which takes any hidden size) and against the port's own
 unpadded, single-group runs; the depth-group planner with stub
@@ -251,18 +252,23 @@ def test_depth_groups_keep_one_launch(depths, h, dtype):
 
 def test_depth_groups_split_streams_and_raise():
     """Where one layer of all streams fits no launch, each stream is
-    partitioned alone; where one unit fits none, the planner raises and
-    names the limit: the shared memory (fp32 H=1024: every column split's
-    weight slice is over 227 KB) or the card's residency."""
+    partitioned alone. Where one unit's weight slice is over a CTA's 227
+    KB at every column split (fp32 H=1024), the groups take the streamed
+    mode, one layer of both streams a group (33.5 MB of weights a step,
+    within the L2 budget). Where one unit fits no launch even streamed
+    (the card holds 4 CTAs: 8 of N=64 are needed at bf16 H=512), the
+    planner raises and names the card's residency."""
     held = lambda N, CS, f, b: 64
     assert depth_groups((2, 2, 1), 512, torch.float32, held) == (
         ((0, 0, 1),), ((0, 1, 2),), ((1, 0, 1),), ((1, 1, 2),), ((2, 0, 1),))
-    with pytest.raises(ValueError, match=r"hidden size 1024 in float32 .*"
-                                         r"over the 232448 bytes of shared"):
-        depth_groups((4, 4), 1024, torch.float32)
+    groups = depth_groups((4, 4), 1024, torch.float32)
+    assert groups == _layers((0, 1), (1, 2), (2, 3), (3, 4))
+    assert all(wavefront._launch_plan(32, 2, 1024, torch.float32).kind
+               == "stream" and 2 * 1024 * 4096 * 4 <= wavefront._L2_BUDGET
+               for _ in groups)
     with pytest.raises(ValueError, match=r"hidden size 512 in bfloat16 .*"
                                          r"more than the card holds"):
-        depth_groups((4, 4), 512, torch.bfloat16, lambda N, CS, f, b: 8)
+        depth_groups((4, 4), 512, torch.bfloat16, lambda N, CS, f, b: 4)
 
 
 def test_wavefront_groups_on_the_cpu():
@@ -522,11 +528,24 @@ def test_kernels_match_plain_on_the_card(cuda_device, dtype, h, depths):
 
 @pytest.mark.cuda
 def test_unit_over_the_shared_memory_raises_on_the_card(cuda_device):
-    """fp32 H=1024: no launch takes one unit; the card raises before any
-    launch and never runs the plain recurrence in its place."""
+    """fp32 H=1024, whose weight slice no CTA's shared memory holds: the
+    unit runs on the streamed grid kernels, one streamed residual forward
+    and one streamed reverse launch, its outputs and gradients against
+    the plain recurrence on the card at the fp32 bars above; the plain
+    run launches nothing."""
     r = np.random.default_rng(0)
     arrays = [_stream_arrays(r, 1, 1024, 2, 4, 3)]
-    before = _entries()
-    with pytest.raises(ValueError, match="shared memory"):
-        _card_run(arrays, torch.float32, wavefront_recurrence, cuda_device)
-    assert _entries() == before
+    counts = (wavefront_fwd.entry_launches, wavefront_bwd.entry_launches)
+    entries = ("wavefront_grid_fwd_res_stream_f32",
+               "wavefront_grid_bwd_stream_f32")
+    before = [c[e] for c, e in zip(counts, entries)]
+    got, g_got, n = _card_run(arrays, torch.float32, wavefront_recurrence,
+                              cuda_device)
+    assert [c[e] - b for c, e, b in zip(counts, entries, before)] == [1, 1]
+    want, g_want, n_plain = _card_run(arrays, torch.float32,
+                                      wavefront_fwd_plain, cuda_device)
+    assert n == (1, 1) and n_plain == (0, 0)
+    for (ys, (hf, cf)), (ys_w, (hf_w, cf_w)) in zip(got, want):
+        for a, b in ((ys, ys_w), (hf, hf_w), (cf, cf_w)):
+            assert _rel(a, b) <= FWD_TOL
+    _assert_grads(g_got, g_want, False)

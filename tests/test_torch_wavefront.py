@@ -571,14 +571,20 @@ def test_grid_plan_refuses_too_few_clusters():
     """A card that holds fewer clusters than a plan needs, at every N and
     cluster size, raises before any launch; the message names each
     (N, cluster size) tried and the N whose CTAs overflow the shared
-    memory (fp32 H=256: N=32)."""
+    memory (fp32 H=256: N=32). A card that holds 20 CTAs, too few for
+    every resident plan, takes the streamed mode's 12 CTAs of N=64; one
+    that holds 8 takes no plan at all."""
+    plan = _launch_plan(32, 3, 256, torch.float32,
+                        grid_resident=lambda N, CS, f, b: 20)
+    assert (plan.kind, plan.cols, plan.ctas) == ("stream", 64, 12)
     with pytest.raises(ValueError, match=r"N=8 in clusters of 8: 96 CTAs, "
-                                         r"the card holds 20") as err:
+                                         r"the card holds 8") as err:
         _launch_plan(32, 3, 256, torch.float32,
-                     grid_resident=lambda N, CS, f, b: 20)
+                     grid_resident=lambda N, CS, f, b: 8)
     msg = str(err.value)
     assert "N=16 in clusters of 1: 48 CTAs" in msg
     assert "N=32: over 232448 bytes of shared memory" in msg
+    assert "streamed N=64 in clusters of 1: 12 CTAs" in msg
 
 
 def test_grid_plan_rows_and_rings():

@@ -28,19 +28,29 @@ of one unit, the units handing each step over through per-unit step flags
 `wavefront_grid_{fwd,fwd_res,bwd}_{f32,bf16}`, counted in the same
 `entry_launches` and in the same totals.
 
+Where no grid plan keeps a CTA's weight slice in shared memory with all
+CTAs resident (a unit's 2H x 4N slice over 227 KB at every N: fp32 H over
+520, bf16 over 1056; or a unit's CTAs at N <= 32 over the card's
+residency), the grid kernels run in their streamed mode (`_stream_plan`,
+entry points `wavefront_grid_{fwd,fwd_res,bwd}_stream_{f32,bf16}`): the
+wrapper packs every CTA's slice into tiles in mma-fragment order, one
+gather a call (`_stream_tiles`), and each step streams them from L2
+through a ring of shared-memory slots.
+
 The kernels refuse a hidden size that is not a multiple of 8, and a stack
-whose grid CTAs the card cannot hold at once. The model never hands them
-either: it packs each unit zero-padded to a multiple of 8
+whose grid CTAs the card cannot hold at once even at N = 64. The model
+never hands them either: it packs each unit zero-padded to a multiple of 8
 (`models.blocks.padded_width`), and runs a stack too wide for one launch
 as depth groups, runs of consecutive layers each launched alone
-(`depth_groups`, `wavefront_groups`). A unit that fits no launch (its
-weight slice over a CTA's shared memory, or its own CTAs over the card's
-residency) raises.
+(`depth_groups`, `wavefront_groups`); a streamed group holds no more
+layers than keep a step's weights within `_L2_BUDGET`. A unit that fits
+no launch at all (more than 64 x 132 state columns) raises.
 
 Inside a CUDA-graph capture a launch is recorded, not run, and reads no
 host value that a replay would freeze: the shape caches `_held`,
-`_grid_held`, `_indices`, `_groups` and the built libraries are filled by
-an eager launch of the same shape first; the grid kernels' step flags are
+`_grid_held`, `_indices`, `_tile_index`, `_feeds_of`, `_groups` and the
+built libraries are filled by an eager launch of the same shape first (the
+streamed tiles are gathered on the stream, so a graph records the gather); the grid kernels' step flags are
 zeroed on the stream, which the graph replays; the launchers'
 cudaFuncSetAttribute
 is accepted during a capture, and the cluster-dimension and cooperative
@@ -58,6 +68,7 @@ package's custom VJP does (`vae_teb_tpu/models/blocks.py::_wavefront_core`).
 from __future__ import annotations
 
 import ctypes
+import weakref
 from collections import Counter
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -80,20 +91,35 @@ _GRID_ROWS = 32              # batch rows a pass of the grid kernels
 _GRID_BUFS = (2, 8)          # most stage buffers: forward, reverse
 _FLAG_STRIDE = 32            # int32 words from a unit's step flag to the next
 _WARPS = 8                   # consumer warps of a grid CTA
+_STREAM_COLS = (8, 16, 32, 64)   # state columns a streamed CTA may own
+_STREAM_KTILES = (32, 16, 8, 4, 2, 1)   # k-tiles a chunk of the streamed mode
+_STREAM_BUFS = 8                 # most ring slots of a streamed CTA
+# The most weight bytes a step of a streamed depth group may read, so that
+# they can stay in the H100's 50 MB L2 from one step to the next. On an
+# H100 (700 W; chip_smoke.py phase 15 (d), B=32, K=303, fp32) a group of
+# one layer of both encoder streams at H=1024, 33.5 MB a step, runs its
+# forward in 5.39 ms and its reverse in 8.02 ms; a group of two layers of
+# both with their two feed blocks, 100.7 MB a step, in 16.56 / 18.95 ms,
+# against 10.78 / 16.04 ms for the two groups it replaces: over the L2 a
+# launch is 1.54x (forward) and 1.18x (reverse) slower. 40 MiB keeps one
+# layer of both streams together at fp32 H=1024 and bf16 H=1536 (37.7 MB).
+_L2_BUDGET = 40 * 2 ** 20
 
 
 class LaunchPlan(NamedTuple):
-    rows: int        # cluster: M, batch rows per cluster; grid: 0
-    clusters: int    # cluster: ceil(B / M), each of U CTAs; grid: 0
+    rows: int        # cluster: M, batch rows per cluster; grid: rows a pass
+    clusters: int    # cluster: ceil(B / M), each of U CTAs; grid: clusters
     fwd_smem: int    # dynamic shared memory of a forward CTA, bytes
     bwd_smem: int    # ... of a reverse-wavefront CTA
-    kind: str = "cluster"   # "cluster" or "grid"
+    kind: str = "cluster"   # "cluster", "grid" or "stream"
     cols: int = 0    # grid: N, state columns of one unit a CTA owns
     ctas: int = 0    # grid: U * H / N CTAs in the cooperative launch
     cluster: int = 0   # grid: CTAs a thread-block cluster (of one unit)
     fwd_bufs: int = 0  # grid: stage buffers of a forward CTA's ring
     bwd_bufs: int = 0  # ... of a reverse CTA's
     flags: int = 0     # grid: int32 words of the step flags, U * 32
+    fwd_chunk: int = 0   # stream: depths of a forward chunk (a tile, a slot)
+    bwd_chunk: int = 0   # ... of a reverse chunk
 
 
 def _smem(M: int, H: int, item: int) -> Tuple[int, int]:
@@ -133,12 +159,19 @@ def _grid_layout(fwd: bool, N: int, H: int, item: int, rows: int,
     padded = -(-rows // 8) * 8 if fwd else -(-rows // 16) * 16
     mt = N // 4 if fwd else padded // 16
     nt = padded // 8 if fwd else N // 8
-    ks = _WARPS // mt
-    cols = 4 * N if fwd else N
     off = _up128(256 + (mt if fwd else nt) * stages * kts * 32
                  * (16 if fwd else 8))
-    off = _up128(off + bufs * padded * rs * item)
-    off = _up128(off + ks * padded * (cols + 8 if fwd else cols) * 4)
+    return _layout_tail(fwd, N, item, rows, off + bufs * padded * rs * item)
+
+
+def _layout_tail(fwd: bool, N: int, item: int, rows: int, off: int) -> int:
+    """The regions after the ring, from byte `off` (wavefront_grid.cuh::
+    layout_tail): the depth slices' sums (8 / m-tiles slices, at least
+    one), two steps' inputs, the forward's bias, the carried state; the
+    total bytes."""
+    padded = -(-rows // 8) * 8 if fwd else -(-rows // 16) * 16
+    ks = max(1, _WARPS // (N // 4 if fwd else padded // 16))
+    off = _up128(_up128(off) + ks * padded * (4 * N + 8 if fwd else N) * 4)
     off = _up128(off + 2 * rows * (4 if fwd else 7) * N * item)
     off = _up128(off + (16 * N if fwd else 0))
     return _up128(off + (2 if fwd else 3) * rows * N * 4)
@@ -201,9 +234,85 @@ def _grid_plan(B: int, U: int, H: int, item: int,
                      f"{'; '.join(tried)})")
 
 
+def _stream_layout(fwd: bool, N: int, H: int, item: int, rows: int,
+                   bufs: int, kc: int) -> int:
+    """Bytes of shared memory of a forward or reverse CTA of the streamed
+    mode, as wavefront_grid.cuh::stream_layout lays it out (each region
+    128-byte aligned): 256 bytes of mbarriers; a ring of `bufs` slots, each
+    a chunk's weight tile (4N x kc forward, kc x N reverse, storage values)
+    and the chunk of the pass's rows (rounded up to 8 forward, 16 reverse)
+    at kc values and 16 bytes a row; then as `_grid_layout`: the depth
+    slices' sums (8 / m-tiles slices, one where the forward's 4N / 16
+    m-tiles are 8 or more), two steps' inputs, the forward's bias, the
+    carried state. Nothing here grows with H."""
+    padded = -(-rows // 8) * 8 if fwd else -(-rows // 16) * 16
+    slot = _up128((4 * N if fwd else N) * kc * item
+                  + padded * (kc * item + 16))
+    return _layout_tail(fwd, N, item, rows, 256 + bufs * slot)
+
+
+def _stream_plan(B: int, U: int, H: int, item: int,
+                 resident: Optional[Callable[[int, int, int, int], int]],
+                 why: str) -> LaunchPlan:
+    """The streamed mode's plan, for a shape no resident grid plan takes
+    (`why` says why). Rows a pass min(B, 32). Columns N (8, 16, 32, 64;
+    ceil(H / N) CTAs a unit, the last owning H mod N columns where N does
+    not divide H), the fewest first; for each and each direction, the
+    largest chunk (32, 16, ..., 1 k-tiles of the mma's 8 (tf32) or 16
+    (bf16) depths) with which a ring of at least 2 slots fits 227 KB, and
+    the most slots up to 8; then clusters of CS CTAs of one unit (8, 4, 2,
+    1 dividing ceil(H / N)), the largest first; the first (N, CS) with
+    which all its CTAs are resident at once wins (`resident` as
+    `_grid_plan` takes it, asked of the streamed kernels).
+
+    Every chunk costs a round of small bulk copies (a row segment of each
+    of the pass's rows) whatever its depth, so the fewest chunks a step
+    win, even over a deeper ring (chip_smoke.py phase 15 (d) times the
+    plan against smaller chunks and clusters of 1). Raises when nothing
+    fits."""
+    rows = min(B, _GRID_ROWS)
+    kw = 8 if item == 4 else 16
+    tried = []
+
+    def ring(fwd, N):   # (chunk, slots): the largest chunk, 2+ slots
+        for kt in _STREAM_KTILES:
+            n = max((n for n in range(2, _STREAM_BUFS + 1)
+                     if _stream_layout(fwd, N, H, item, rows, n, kt * kw)
+                     <= _SMEM_LIMIT), default=0)
+            if n:
+                return kt * kw, n
+        return None
+
+    for N in _STREAM_COLS:
+        per_unit = -(-H // N)     # the last CTA of a unit may own fewer
+        rings = ring(True, N), ring(False, N)
+        if None in rings:
+            tried.append(f"streamed N={N}: no ring of 2 slots in "
+                         f"{_SMEM_LIMIT} bytes")
+            continue
+        (fkc, fbufs), (bkc, bbufs) = rings
+        fwd = _stream_layout(True, N, H, item, rows, fbufs, fkc)
+        bwd = _stream_layout(False, N, H, item, rows, bbufs, bkc)
+        ctas = U * per_unit
+        for CS in _GRID_CLUSTERS:
+            if per_unit % CS:
+                continue
+            held = resident(N, CS, fwd, bwd) if resident else _SMS // CS * CS
+            if ctas <= held:
+                return LaunchPlan(rows, ctas // CS, fwd, bwd, "stream", N,
+                                  ctas, CS, fbufs, bbufs, U * _FLAG_STRIDE,
+                                  fkc, bkc)
+            tried.append(f"streamed N={N} in clusters of {CS}: {ctas} CTAs, "
+                         f"the card holds {held}")
+    raise ValueError(f"{why[:-1]}; the streamed grid kernels: "
+                     f"{'; '.join(tried)})")
+
+
 def _launch_plan(B: int, U: int, H: int, dtype: torch.dtype,
                  resident: Optional[Callable[[int, int, int], int]] = None,
                  grid_resident: Optional[Callable[[int, int, int, int], int]]
+                 = None,
+                 stream_resident: Optional[Callable[[int, int, int, int], int]]
                  = None) -> LaunchPlan:
     """How the kernels split a batch of B rows over U units of width H.
 
@@ -218,8 +327,10 @@ def _launch_plan(B: int, U: int, H: int, dtype: torch.dtype,
     clusters in waves.
 
     Any other shape takes the grid kernels (`_grid_plan`, with
+    `grid_resident`), with their weight slices resident where a plan fits,
+    else streamed (`_stream_plan`, with `stream_resident`, by default
     `grid_resident`), which raise when their CTAs cannot all be resident.
-    Both refuse H not a multiple of 8 (16-byte copies of a unit's row
+    All refuse H not a multiple of 8 (16-byte copies of a unit's row
     segment; the grid CTAs' 8 columns) and a storage dtype other than
     float32 or bfloat16.
     """
@@ -235,7 +346,11 @@ def _launch_plan(B: int, U: int, H: int, dtype: torch.dtype,
     item = torch.empty((), dtype=dtype).element_size()
     if (U > _MAX_UNITS or 4 * H > _MAX_THREADS
             or max(_smem(1, H, item)) > _SMEM_LIMIT):
-        return _grid_plan(B, U, H, item, grid_resident)
+        try:
+            return _grid_plan(B, U, H, item, grid_resident)
+        except ValueError as e:
+            return _stream_plan(B, U, H, item, stream_resident
+                                or grid_resident, str(e))
     plan = None
     for M in range(1, _MAX_ROWS + 1):
         fwd, bwd = _smem(M, H, item)
@@ -276,16 +391,21 @@ def _card_resident(device: torch.device, dtype: torch.dtype, U: int, H: int
 _grid_held: Dict[tuple, int] = {}
 
 
-def _card_grid_resident(device: torch.device, dtype: torch.dtype
+def _card_grid_resident(device: torch.device, dtype: torch.dtype,
+                        stream: bool = False
                         ) -> Callable[[int, int, int, int], int]:
     """`grid_resident` for `_launch_plan` on a card: the CTAs that both grid
-    kernels can hold at once in clusters of CS (cudaOccupancyMaxActiveClusters
-    times CS), asked once per shape; raises on a CUDA error."""
+    kernels (with `stream`, their streamed mode: `stream_resident`) can hold
+    at once in clusters of CS (cudaOccupancyMaxActiveClusters times CS),
+    asked once per shape; raises on a CUDA error."""
+    mode = "_stream" if stream else ""
+
     def held(N: int, CS: int, fwd_smem: int, bwd_smem: int) -> int:
-        key = (device, dtype, CS, fwd_smem, bwd_smem)
+        key = (device, dtype, stream, CS, fwd_smem, bwd_smem)
         if key not in _grid_held:
             with torch.cuda.device(device):
-                n = min(_max_ctas(kind)(int(dtype == torch.bfloat16), CS, smem)
+                n = min(_max_ctas(kind + mode)(int(dtype == torch.bfloat16),
+                                               CS, smem)
                         for kind, smem in (("fwd", fwd_smem),
                                            ("bwd", bwd_smem)))
             if n < 0:
@@ -302,8 +422,16 @@ def _card_grid_resident(device: torch.device, dtype: torch.dtype
 Group = Tuple[Tuple[int, int, int], ...]
 
 
+def _step_bytes(units: int, feeds: int, H: int, item: int) -> int:
+    """Weight bytes a step of a streamed launch reads: each unit's recurrent
+    block and each feed block, H x 4H values each."""
+    return (units + feeds) * H * 4 * H * item
+
+
 def depth_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
                  grid_resident: Optional[Callable[[int, int, int, int], int]]
+                 = None,
+                 stream_resident: Optional[Callable[[int, int, int, int], int]]
                  = None) -> Tuple[Group, ...]:
     """Partition a stack of LSTM streams (`depths` layers each, hidden
     size H, a multiple of 8) into the fewest runs of consecutive layers
@@ -314,31 +442,49 @@ def depth_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
     deeper than l0, its layers [l0, min(depth, l1)). Where even one layer
     of all streams fits no launch, each stream is partitioned alone,
     stream after stream. A run fits when `_launch_plan` takes its units
+    with their weight slices resident (a cluster or a resident grid plan)
     at 32 rows (the grid kernels' most rows a pass, so any batch fits
     what 32 rows fit: the partition never depends on B), with
     `grid_resident` as `_launch_plan` takes it. Greedy is fewest: a run
-    inside a run that fits fits too. Raises when one unit fits no launch,
-    naming the limit it passes (shared memory or the CTAs the card
-    holds), the shape and the dtype."""
+    inside a run that fits fits too.
+
+    Where not even one unit fits a resident plan, the groups are streamed
+    (`_stream_plan`, with `stream_resident`, by default `grid_resident`):
+    a run fits when a streamed plan takes it and its step's weights (each
+    unit's recurrent block and each feed block inside the run, H x 4H
+    values each) are at most `_L2_BUDGET` bytes, so that they come from L2
+    and not from device memory; a single unit always fits if any plan
+    takes it. Raises when one unit fits no launch (more CTAs than the card
+    holds at every N), naming the limit, the shape and the dtype."""
     depths = tuple(depths)
+    item = torch.empty((), dtype=dtype).element_size()
     tried: Dict[int, Optional[str]] = {}
 
     def refused(U):   # why U units fit no launch, or None
         if U not in tried:
             try:
-                _launch_plan(_GRID_ROWS, U, H, dtype,
-                             grid_resident=grid_resident)
-                tried[U] = None
+                tried[U] = (_launch_plan(_GRID_ROWS, U, H, dtype,
+                                         grid_resident=grid_resident,
+                                         stream_resident=stream_resident),
+                            None)
             except ValueError as e:
-                tried[U] = str(e)
-        return tried[U]
+                tried[U] = None, str(e)
+        return tried[U][1]
 
-    def runs(streams):   # greedy runs of layers over (stream, depth) pairs
+    def resident(units, feeds):
+        return refused(units) is None and tried[units][0].kind != "stream"
+
+    def streamed(units, feeds):
+        return refused(units) is None and (
+            units == 1 or _step_bytes(units, feeds, H, item) <= _L2_BUDGET)
+
+    def runs(streams, fits):   # greedy runs of layers over (stream, depth)
         units = lambda l0, l1: sum(max(0, min(d, l1) - l0) for _, d in streams)
+        feeds = lambda l0, l1: units(l0, l1) - sum(d > l0 for _, d in streams)
         out, l0, D = [], 0, max(d for _, d in streams)
         while l0 < D:
             l1 = l0 + 1
-            while l1 < D and refused(units(l0, l1 + 1)) is None:
+            while l1 < D and fits(units(l0, l1 + 1), feeds(l0, l1 + 1)):
                 l1 += 1
             out.append(tuple((s, l0, min(d, l1)) for s, d in streams
                              if d > l0))
@@ -346,18 +492,18 @@ def depth_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
         return out
 
     streams = list(enumerate(depths))
-    if refused(len(depths)) is None:
-        return tuple(runs(streams))
+    if resident(len(depths), 0):
+        return tuple(runs(streams, resident))
+    if resident(1, 0):
+        return tuple(g for s in streams for g in runs([s], resident))
     why = refused(1)
     if why is not None:
-        limit = ("its CTAs are more than the card holds at once"
-                 if "the card holds" in why else
-                 f"its weight slice is over the {_SMEM_LIMIT} bytes of shared "
-                 f"memory of a CTA at every column split")
         raise ValueError(f"one LSTM unit of hidden size {H} in "
-                         f"{str(dtype)[6:]} fits no wavefront launch: "
-                         f"{limit} ({why})")
-    return tuple(g for s in streams for g in runs([s]))
+                         f"{str(dtype)[6:]} fits no wavefront launch: its "
+                         f"CTAs are more than the card holds at once ({why})")
+    if streamed(len(depths), 0):
+        return tuple(runs(streams, streamed))
+    return tuple(g for s in streams for g in runs([s], streamed))
 
 
 _groups: Dict[tuple, Tuple[Group, ...]] = {}
@@ -379,8 +525,9 @@ def wavefront_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
             raise RuntimeError(f"the depth groups of {depths} layers of H={H} "
                                f"are not known yet: run the shape eagerly "
                                f"once before capturing it")
-        _groups[key] = depth_groups(depths, H, dtype,
-                                    _card_grid_resident(device, dtype))
+        _groups[key] = depth_groups(
+            depths, H, dtype, _card_grid_resident(device, dtype),
+            _card_grid_resident(device, dtype, stream=True))
     return _groups[key]
 
 
@@ -452,6 +599,113 @@ def _bwd_layout(wb: torch.Tensor) -> torch.Tensor:
     return wb.transpose(1, 2).contiguous()
 
 
+_feeds_of: Dict[int, tuple] = {}
+
+
+def _feeds(lvec: torch.Tensor) -> Tuple[bool, ...]:
+    """Which units a feed block reaches (lvec[u] > 0), read on the host
+    once per lvec tensor (the model's are cached per layout, `blocks.
+    _lvec_like`) and kept while that tensor lives, so that a CUDA-graph
+    capture, which may not copy to the host, only reads it."""
+    hit = _feeds_of.get(id(lvec))
+    if hit is None or hit[0]() is not lvec:
+        if lvec.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the streamed tiles' layout is not known for "
+                               "this lvec yet: run the shape eagerly once "
+                               "before capturing it")
+        hit = weakref.ref(lvec), tuple(v > 0 for v in lvec.tolist())
+        _feeds_of[id(lvec)] = hit
+    return hit[1]
+
+
+_tile_index: Dict[tuple, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
+
+
+def _stream_index(feeds: Tuple[bool, ...], H: int, N: int, kc: int, kw: int,
+                  fwd: bool, device: torch.device
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Flat indices into W_eff (UH, 4UH) of the streamed tiles, int32, and
+    the mask of the entries past H (depth or column; None where there are
+    none), which the tiles hold as zeros. Tiles in order (unit, column
+    block of N, stage,
+    chunk of kc depths), each in the fragment order of the resident grid
+    kernels' weight slice: forward, stage 0 unit u's recurrent block and
+    stage 1 its feed block (units with feeds[u] only), A fragments
+    [N / 4][kc / kw][32 lanes][4 registers] (x2 bf16 halves) of the 4N
+    gate columns by the depth; reverse, stages 0-3 unit u's recurrent
+    block's gates and 4-7 the gates of its feed block into unit u+1
+    (where feeds[u+1] only), B fragments [N / 8][kc / kw][32][2] (x2) of
+    the depth by the N state columns. Built once per shape."""
+    key = (feeds, H, N, kc, kw, fwd, device)
+    if key not in _tile_index:
+        U = len(feeds)
+        UH = U * H
+        nc = -(-H // kc)
+        half = kw // 8          # storage values a 32-bit register holds
+        lane = torch.arange(32)
+        g, t = lane // 4, lane % 4
+        if fwd:
+            r = torch.arange(4)
+            shape = (N // 4, kc // kw, 32, 4, half)
+            m = (torch.arange(N // 4).view(-1, 1, 1, 1, 1) * 16
+                 + g.view(1, 1, -1, 1, 1) + (r % 2).view(1, 1, 1, -1, 1) * 8)
+            d = (torch.arange(kc // kw).view(1, -1, 1, 1, 1) * kw
+                 + (t * half).view(1, 1, -1, 1, 1)
+                 + (r // 2).view(1, 1, 1, -1, 1) * (kw // 2)
+                 + torch.arange(half).view(1, 1, 1, 1, -1))
+        else:
+            r = torch.arange(2)
+            shape = (N // 8, kc // kw, 32, 2, half)
+            m = (torch.arange(N // 8).view(-1, 1, 1, 1, 1) * 8
+                 + g.view(1, 1, -1, 1, 1))
+            d = (torch.arange(kc // kw).view(1, -1, 1, 1, 1) * kw
+                 + (t * half).view(1, 1, -1, 1, 1)
+                 + r.view(1, 1, 1, -1, 1) * (kw // 2)
+                 + torch.arange(half).view(1, 1, 1, 1, -1))
+        m, d = (x.expand(shape).reshape(-1) for x in (m, d))
+        blocks = -(-H // N)      # column blocks a unit, the last maybe short
+        t = torch.arange(blocks).view(-1, 1, 1) * N + (m % N if fwd else m
+                                                       ).view(1, 1, -1)
+        depth = torch.arange(nc).view(1, -1, 1) * kc + d.view(1, 1, -1)
+        pad = (depth >= H) | (t >= H)                       # (blocks, nc, e)
+        parts, masks = [], []
+        for u in range(U):
+            if fwd:      # stage s: rows of unit u - s, gate columns of u
+                stages = [(u, 0)] + ([(u - 1, 0)] if feeds[u] else [])
+                col = (m // N) * UH + u * H + t                 # (blocks, 1, e)
+                idx = [(v * H + depth) * 4 * UH + col for v, _ in stages]
+            else:        # stage s: rows of unit u, gate s % 4 of u + s // 4
+                last = u + 1 == U or not feeds[u + 1]
+                stages = [(u + s // 4, s % 4) for s in range(4 if last else 8)]
+                row = u * H + t                                 # (blocks, 1, e)
+                idx = [row * 4 * UH + q * UH + v * H + depth for v, q in stages]
+            idx = torch.stack([i.expand(blocks, nc, -1) for i in idx], 1)
+            mask = pad.unsqueeze(1).expand(-1, len(stages), -1, -1)
+            parts.append(torch.where(mask, 0, idx).reshape(-1))
+            masks.append(mask.reshape(-1))
+        mask = torch.cat(masks)
+        _tile_index[key] = (torch.cat(parts).to(torch.int32).to(device),
+                            mask.to(device) if mask.any() else None)
+    return _tile_index[key]
+
+
+def _stream_tiles(W_eff: torch.Tensor, lvec: torch.Tensor, plan: LaunchPlan,
+                  fwd: bool) -> torch.Tensor:
+    """The streamed mode's weight tiles (`_stream_index`), gathered from
+    W_eff on its device and stream every call: one index_select, and zeros
+    written past H where a chunk is short."""
+    U = lvec.numel()
+    H = W_eff.shape[0] // U
+    kw = 8 if W_eff.element_size() == 4 else 16
+    kc = plan.fwd_chunk if fwd else plan.bwd_chunk
+    idx, pad = _stream_index(_feeds(lvec), H, plan.cols, kc, kw, fwd,
+                             W_eff.device)
+    tiles = torch.index_select(W_eff.view(-1), 0, idx)
+    if pad is not None:
+        tiles.masked_fill_(pad, 0)
+    return tiles
+
+
 def _max_clusters(kind: str):
     """wavefront_{kind}_max_clusters(bf16, B, U, H, M, smem) -> int."""
     fn = build.load(f"wavefront_{kind}.cu")[f"wavefront_{kind}_max_clusters"]
@@ -461,8 +715,9 @@ def _max_clusters(kind: str):
 
 
 def _max_ctas(kind: str):
-    """wavefront_grid_{kind}_max_ctas(bf16, CS, smem) -> int."""
-    fn = build.load(f"wavefront_grid_{kind}.cu")[
+    """wavefront_grid_{kind}_max_ctas(bf16, CS, smem) -> int; `kind` fwd,
+    bwd, fwd_stream or bwd_stream."""
+    fn = build.load(f"wavefront_grid_{kind.split('_')[0]}.cu")[
         f"wavefront_grid_{kind}_max_ctas"]
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
@@ -503,23 +758,30 @@ def _check(name: str, tensors, lvec: torch.Tensor, seq: torch.Tensor
     H = UH // U
     return _launch_plan(B, U, H, dtype,
                         _card_resident(seq.device, dtype, U, H),
-                        _card_grid_resident(seq.device, dtype))
+                        _card_grid_resident(seq.device, dtype),
+                        _card_grid_resident(seq.device, dtype, stream=True))
 
 
 def _launch(kind: str, entry: str, plan: LaunchPlan, ptrs, K: int, B: int,
             U: int, H: int, S: int, device: torch.device) -> str:
     """Launch `entry` of the cluster or the grid kernel of `kind` ("fwd" or
     "bwd") as `plan` says; raises on a CUDA error. Returns the entry point's
-    name as counted: the grid kernels' carry `grid_` after `wavefront_`."""
+    name as counted: the grid kernels' carry `grid_` after `wavefront_`,
+    their streamed mode's also `_stream` before the storage type."""
     smem = plan.fwd_smem if kind == "fwd" else plan.bwd_smem
-    if plan.kind == "grid":
+    if plan.kind in ("grid", "stream"):
         entry = entry.replace("wavefront_", "wavefront_grid_", 1)
         source = f"wavefront_grid_{kind}.cu"
         # the units' step flags, zero at the start of every launch
         flags = torch.zeros(plan.flags, dtype=torch.int32, device=device)
         ptrs = list(ptrs) + [flags.data_ptr()]
         bufs = plan.fwd_bufs if kind == "fwd" else plan.bwd_bufs
-        ints = (K, B, U, H, S, plan.cols, plan.cluster, plan.rows, bufs, smem)
+        ints = (K, B, U, H, S, plan.cols, plan.cluster, plan.rows, bufs)
+        if plan.kind == "stream":
+            head, dt = entry.rsplit("_", 1)
+            entry = f"{head}_stream_{dt}"
+            ints += (plan.fwd_chunk if kind == "fwd" else plan.bwd_chunk,)
+        ints += (smem,)
     else:
         source = f"wavefront_{kind}.cu"
         ints = (K, B, U, H, S, plan.rows, smem)
@@ -553,7 +815,8 @@ def _fwd_cuda(W_eff: torch.Tensor, b_packed: torch.Tensor,
     dtype, device = xs_wave.dtype, xs_wave.device
     U = lvec.numel()
     H = UH // U
-    wf = W_eff.view(-1)[_block_index(U, H, device)[0]]
+    wf = (_stream_tiles(W_eff, lvec, plan, True) if plan.kind == "stream"
+          else W_eff.view(-1)[_block_index(U, H, device)[0]])
     new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     h_seq, h_fin, c_fin = new(K, B, UH), new(B, UH), new(B, UH)
     ptrs = [x.data_ptr() for x in (wf,) + tensors[1:] + (lvec, h_seq)]
@@ -655,7 +918,8 @@ def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
     dtype, device = gates_seq.dtype, gates_seq.device
     U = lvec.numel()
     H = UH // U
-    wb = W_eff.view(-1)[_block_index(U, H, device)[1]]
+    wb = (_stream_tiles(W_eff, lvec, plan, False) if plan.kind == "stream"
+          else W_eff.view(-1)[_block_index(U, H, device)[1]])
     dgates_seq = torch.empty((K, B, G), dtype=dtype, device=device)
     dh_fin = torch.empty((B, UH), dtype=dtype, device=device)
     dc_fin = torch.empty((B, UH), dtype=dtype, device=device)

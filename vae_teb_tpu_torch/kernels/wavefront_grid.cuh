@@ -22,6 +22,18 @@
 // step-independent inputs come by cp.async a step ahead into two more
 // buffers, each of the producer's lanes arriving on an `in` mbarrier when
 // its copies land.
+//
+// The streamed mode (template flag STREAM of both kernels, plan kind
+// "stream") is for the shapes whose weight slice does not fit a CTA's
+// shared memory: nothing that grows with H stays resident. The wrapper
+// packs each CTA's slice in global memory as tiles in mma-fragment order,
+// one per (unit, column block, stage, k-chunk of KC depths), each one
+// contiguous; a step is a pipelined k-loop over its stages' chunks, each
+// chunk one ring slot holding the weight tile (one bulk copy into this
+// CTA) and the chunk's KC columns of the stage's rows (multicast to the
+// cluster as above). Every consumer warp releases a slot on its own (the
+// `empty` mbarrier counts WARPS arrivals from each CTA of the cluster),
+// so warps run up to the ring's depth apart.
 
 #pragma once
 
@@ -59,7 +71,27 @@ struct Layout {
   int ps;      // row stride of the slices' sums: 4N + 8 forward, N reverse,
                // so that a warp's cells read 32 banks
   size_t w, buf, part, in, bias, carry, total;  // byte offsets, size
+  // streamed mode: a ring slot is a weight tile (wt bytes) and the rows'
+  // chunk (rows x rsc storage values); kc depths a chunk, kpc k-tiles
+  int kc, kpc, rsc;
+  size_t slot, wt;
 };
+
+// The regions after the ring, from byte `off`, as kernels/wavefront.py::
+// _layout_tail mirrors it: the depth slices' sums, two steps' inputs, the
+// forward's bias, the carried state; sets L.total
+template <typename T, bool FWD>
+__host__ __device__ inline void layout_tail(Layout& L, size_t off, int MB,
+                                            int N) {
+  L.part = off = up128(off);  // the depth slices' sums, fp32 [ks][rows][ps]
+  off = up128(off + (size_t)L.ks * L.rows * L.ps * 4);
+  L.in = off;  // two steps' inputs [2][MB][segments][N]
+  off = up128(off + (size_t)2 * MB * (FWD ? 4 : 7) * N * sizeof(T));
+  L.bias = off;  // forward: the slice of b, fp32 [4N]
+  off = up128(off + (FWD ? (size_t)16 * N : 0));
+  L.carry = off;  // carried state, fp32 [MB][N]: h, c / dh, dc, dh_tot
+  L.total = up128(off + (size_t)(FWD ? 2 : 3) * MB * N * 4);
+}
 
 template <typename T, bool FWD>
 __host__ __device__ inline Layout grid_layout(int H, int N, int MB, int nbuf) {
@@ -80,17 +112,53 @@ __host__ __device__ inline Layout grid_layout(int H, int N, int MB, int nbuf) {
   off = up128(off + (size_t)(FWD ? L.mt : L.nt) * L.stages * L.kts * 32 *
                         (FWD ? 16 : 8));
   L.buf = off;  // the ring: nbuf x rows x rs
-  off = up128(off + (size_t)nbuf * L.rows * L.rs * item);
-  L.part = off;  // the depth slices' sums, fp32 [ks][rows][ps]
-  off = up128(off + (size_t)L.ks * L.rows * L.ps * 4);
-  L.in = off;  // two steps' inputs [2][MB][segments][N]
-  off = up128(off + (size_t)2 * MB * (FWD ? 4 : 7) * N * item);
-  L.bias = off;  // forward: the slice of b, fp32 [4N]
-  off = up128(off + (FWD ? (size_t)16 * N : 0));
-  L.carry = off;  // carried state, fp32 [MB][N]: h, c / dh, dc, dh_tot
-  off = up128(off + (size_t)(FWD ? 2 : 3) * MB * N * 4);
-  L.total = off;
+  layout_tail<T, FWD>(L, off + (size_t)nbuf * L.rows * L.rs * item, MB, N);
+  L.kc = L.kpc = L.rsc = 0;
+  L.slot = L.wt = 0;
   return L;
+}
+
+// The streamed mode's layout, as kernels/wavefront.py::_stream_layout
+// mirrors it: 256 bytes of mbarriers; the ring of nbuf slots, each the
+// chunk's weight tile (forward 4N x kc, reverse kc x N storage values, in
+// fragment order) and the chunk of the pass's rows (rounded up to 8 / 16)
+// at a stride of kc values plus 16 bytes; then the depth slices' sums, two
+// steps' inputs, the forward's bias and the carried state as in
+// grid_layout. The forward's m-tiles (4N / 16) are spread over at most the
+// 8 warps: at N = 64 each warp takes two.
+template <typename T, bool FWD>
+__host__ __device__ inline Layout stream_layout(int H, int N, int MB, int nbuf,
+                                                int kc) {
+  Layout L;
+  const int item = (int)sizeof(T);
+  L.kw = item == 4 ? 8 : 16;
+  L.kc = kc;
+  L.kpc = kc / L.kw;
+  L.kts = 0;
+  L.rs = 0;
+  L.rsc = kc + 16 / item;
+  L.stages = FWD ? 2 : 8;
+  L.rows = FWD ? (MB + 7) / 8 * 8 : (MB + 15) / 16 * 16;
+  L.mt = FWD ? N / 4 : L.rows / 16;
+  L.nt = FWD ? L.rows / 8 : N / 8;
+  L.ks = L.mt >= WARPS ? 1 : WARPS / L.mt;
+  L.cols = FWD ? 4 * N : N;
+  L.ps = FWD ? L.cols + 8 : L.cols;
+  L.wt = (size_t)L.cols * kc * item;
+  L.slot = up128(L.wt + (size_t)L.rows * L.rsc * item);
+  L.w = L.buf = BAR_BYTES;
+  layout_tail<T, FWD>(L, L.buf + (size_t)nbuf * L.slot, MB, N);
+  return L;
+}
+
+// The streamed tiles of unit u start after those of the units before it:
+// `stages(v)` tiles of each of its per_unit column blocks and nc chunks
+template <typename F>
+__device__ __forceinline__ size_t units_tiles(int u, int per_unit, int nc,
+                                              F stages) {
+  size_t n = 0;
+  for (int v = 0; v < u; ++v) n += (size_t)stages(v);
+  return n * per_unit * nc;
 }
 
 __device__ __forceinline__ unsigned full_bar(unsigned bars, int i) {
@@ -150,6 +218,18 @@ __device__ __forceinline__ void release_stage(unsigned bar, int cs, int warp,
     } else if (lane < cs) {
       mbar_arrive_remote(cluster_addr(bar, lane));
     }
+  }
+}
+
+// A consumer warp of the streamed mode is done with a ring slot: one
+// arrival on that slot's `empty` mbarrier in each of the cluster's CTAs
+// (lane r to rank r), after every lane's reads of the slot
+__device__ __forceinline__ void release_slot(unsigned bar, int cs, int lane) {
+  __syncwarp();
+  if (cs == 1) {
+    if (lane == 0) mbar_arrive_local(bar);
+  } else if (lane < cs) {
+    mbar_arrive_remote(cluster_addr(bar, lane));
   }
 }
 
@@ -215,12 +295,14 @@ __device__ __forceinline__ void wait_flag(const unsigned* flag,
 // fill of the ring before the bulk copies that overwrite it, and the
 // cluster's CTAs meet, so that no copy or remote arrival reaches a CTA
 // whose mbarriers are not yet initialised.
+// `releases` arrivals from each CTA of the cluster free a ring buffer: one
+// (the consumers meet first) or, in the streamed mode, one a warp.
 __device__ __forceinline__ void grid_init_barriers(unsigned bars, int nbuf,
-                                                   int cs) {
+                                                   int cs, int releases = 1) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < nbuf; ++i) {
       mbar_init_n(full_bar(bars, i), 1);
-      mbar_init_n(empty_bar(bars, i), cs);
+      mbar_init_n(empty_bar(bars, i), cs * releases);
     }
     mbar_init_n(in_bar(bars, 0), 32);
     mbar_init_n(in_bar(bars, 1), 32);
@@ -427,6 +509,20 @@ inline bool grid_args_ok(int H, int N, int CS, int MB, int nbuf, int smem,
   return (N == 8 || N == 16 || N == 32) && H % 8 == 0 && H % N == 0 &&
          (CS == 1 || CS == 2 || CS == 4 || CS == 8) && (H / N) % CS == 0 &&
          MB >= 1 && MB <= MAX_ROWS && nbuf >= 1 && nbuf <= MAX_BUFS &&
+         (size_t)smem == total;
+}
+
+// ... and the streamed mode's: N of 8, 16, 32 or 64, ceil(H / N) CTAs a
+// unit (the last may own fewer columns); chunks of 1, 2, 4, 8, 16 or 32
+// k-tiles (kw = 8 tf32, 16 bf16 depths each); a ring of at least 2 slots
+inline bool stream_args_ok(int H, int N, int CS, int MB, int nbuf, int kc,
+                           int kw, int smem, size_t total) {
+  return (N == 8 || N == 16 || N == 32 || N == 64) && H % 8 == 0 &&
+         (CS == 1 || CS == 2 || CS == 4 || CS == 8) &&
+         ((H + N - 1) / N) % CS == 0 && MB >= 1 && MB <= MAX_ROWS &&
+         nbuf >= 2 &&
+         nbuf <= MAX_BUFS &&
+         kc % kw == 0 && kc / kw <= 32 && ((kc / kw) & (kc / kw - 1)) == 0 &&
          (size_t)smem == total;
 }
 

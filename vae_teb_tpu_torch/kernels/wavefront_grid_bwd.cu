@@ -40,6 +40,18 @@
 // 256 do not all fit in shared memory at once: the ring refills a buffer
 // once every CTA of the cluster is done with it.
 //
+// Streamed weights (entry points wavefront_grid_bwd_stream_*, the plan
+// kind "stream"), for the shapes whose 8H x N slice does not fit a CTA's
+// shared memory, as in wavefront_grid_fwd.cu: the wrapper packs each
+// (unit, column block, stage, chunk of KC depths) as one contiguous tile
+// of KC x N values in B-fragment order (a unit that feeds no unit above it
+// has no tile for stages 4-7), and each step's product is a k-loop over
+// the stages' chunks through a ring of slots, each slot a chunk's weight
+// tile and the chunk's KC columns of the stage's dgates rows. Only the
+// summation order differs from the resident mode (each warp's accumulator
+// sets restart their k-tile count at every chunk); the plain version
+// (kernels/wavefront_ref.py::wavefront_bwd_plain) is its oracle.
+//
 // Plain C interface: each entry point launches on the given stream and
 // returns the CUDA error of the launch (0 on success).
 
@@ -62,6 +74,7 @@ struct BwdParams {
   T* dc_fin;
   unsigned* flags;
   int K, B, U, H, S, N, CS, MB, NBUF;
+  int KC;  // streamed mode: depths a chunk
 };
 
 // x * y * (1 - y), evaluated left to right without contraction
@@ -78,24 +91,41 @@ __device__ __forceinline__ unsigned wb_bits(const BwdParams<T>& p, int u,
   return reinterpret_cast<const unsigned short*>(p.wb)[i];
 }
 
-// NT: n8 tiles of state columns, N / 8
-template <typename T, int NT>
+// NT: n8 tiles of state columns, N / 8; STREAM: the streamed mode
+template <typename T, int NT, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
     wavefront_grid_bwd_kernel(const BwdParams<T> p) {
   constexpr bool TF32 = sizeof(T) == 4;
   constexpr int SETS = sets_for(NT);
   constexpr int SEGS = 7;  // input segments a row: 4 gates, c, c_prev, dY
   const int K = p.K, B = p.B, H = p.H, N = p.N, CS = p.CS, MB = p.MB;
-  const int NBUF = p.NBUF, UH = p.U * H, G = 4 * UH, per_unit = H / N;
+  // CTAs a unit: the streamed mode's last one may own fewer than N columns
+  const int NBUF = p.NBUF, UH = p.U * H, G = 4 * UH;
+  const int per_unit = (H + N - 1) / N;
   const int u = blockIdx.x / per_unit, t0 = (blockIdx.x % per_unit) * N;
+  const int nv = min(N, H - t0);  // this CTA's columns
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, t4 = lane % 4;
   const int layer = p.lvec[u];
   const bool feed_out = u + 1 < p.U && p.lvec[u + 1] > 0;
   const int nstage = feed_out ? 8 : 4;  // unit u's gates, then unit u+1's
-  const Layout L = grid_layout<T, false>(H, N, MB, NBUF);
+  const Layout L = STREAM ? stream_layout<T, false>(H, N, MB, NBUF, p.KC)
+                          : grid_layout<T, false>(H, N, MB, NBUF);
   const int KTT = L.stages * L.kts;
   const int E = (B + MB - 1) / MB * K;
+  // streamed mode: chunks a stage, and this CTA's first weight tile
+  const int nc = STREAM ? (H + p.KC - 1) / p.KC : 0;
+  const size_t tile = L.wt / sizeof(T);
+  const T* tiles =
+      STREAM ? p.wb + (units_tiles(u, per_unit, nc,
+                                   [&](int v) {
+                                     return v + 1 < p.U && p.lvec[v + 1] > 0
+                                                ? 8
+                                                : 4;
+                                   }) +
+                       (size_t)(t0 / N) * nstage * nc) *
+                          tile
+             : nullptr;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned bars = smem_addr(smem);
@@ -107,15 +137,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* dc_c = dh_c + MB * N;
   float* dht_c = dc_c + MB * N;  // dh_tot, which an idle unit carries
 
-  grid_init_barriers(bars, NBUF, CS);
-  for (int i = tid; i < (int)(NBUF * L.rows * L.rs * sizeof(T) / 16);
-       i += THREADS)
+  grid_init_barriers(bars, NBUF, CS, STREAM ? WARPS : 1);
+  // the ring starts zeroed: a chunk shorter than KC leaves earlier rows'
+  // (finite) values past its end, which meet zero weights
+  for (int i = tid; i < (int)((L.part - L.buf) / 16); i += THREADS)
     reinterpret_cast<uint4*>(smem + L.buf)[i] = make_uint4(0, 0, 0, 0);
   // B fragments of the weight slice: [nt][KTT][lane][2], register r of lane
   // (g, t) holding W[d][n] at n = 8 nt + g, d = kw j + (t, or 2t and 2t+1
   // for bf16) (+kw/2 for r = 1); W[s H + d][c] = Wb[u][s H + d][t0 + c],
-  // zero past H and for the feed stages of a unit that feeds none
-  for (int i = tid; i < L.nt * KTT * 64; i += THREADS) {
+  // zero past H and for the feed stages of a unit that feeds none. The
+  // streamed mode's tiles hold the same fragments, [nt][kpc][lane][2] a
+  // chunk.
+  for (int i = tid; !STREAM && i < L.nt * KTT * 64; i += THREADS) {
     const int r = i & 1, ln = (i >> 1) & 31, f = i >> 6;
     const int kt = f % KTT, ntile = f / KTT, s = kt / L.kts;
     const int c = ntile * 8 + ln / 4;
@@ -158,7 +191,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           T* dst = in_s + ((size_t)(j * MB + m) * SEGS + q_in) * N;
           const T* src =
               in_src + ((size_t)k * B + r0 + m) * in_stride + u * H + t0;
-          for (int v = 0; v < N; v += V) cp_async16(dst + v, src + v);
+          for (int v = 0; v < nv; v += V) cp_async16(dst + v, src + v);
         }
       cp_async_arrive(in_bar(bars, j));
     };
@@ -167,7 +200,34 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (E > 1) inputs(1);
     for (int e = 0; e < E; ++e) {
       const int k = K - 1 - e % K, r0 = e / K * MB, rows = min(MB, B - r0);
-      for (int s = 0; s < nstage; ++s, ++g) {
+      for (int s = 0; STREAM && s < nstage; ++s) {
+        const int unit = u + s / 4, q = s % 4;
+        if (q == 0)
+          wait_flag(p.flags + unit * FLAG_STRIDE, (e + 1) * per_unit, lane);
+        const T* src = p.dgates_seq + (size_t)k * B * G + q * UH + unit * H;
+        for (int c = 0; c < nc; ++c, ++g) {
+          // slot g % NBUF: the chunk's weight tile, then its dgates columns
+          const int slot = g % NBUF, use = g / NBUF;
+          if (use > 0) mbar_wait(empty_bar(bars, slot), (use - 1) & 1);
+          const unsigned bytes = min(p.KC, H - c * p.KC) * sizeof(T);
+          const unsigned dst = ring_s + slot * L.slot;
+          if (lane == 0) {
+            mbar_expect(full_bar(bars, slot), rows * bytes + L.wt);
+            bulk_copy(dst, tiles + (size_t)(s * nc + c) * tile, L.wt,
+                      full_bar(bars, slot));
+          }
+          __syncwarp();
+          for (int r = rank + CS * lane; r < rows; r += 32 * CS) {
+            const T* row = src + (size_t)(r0 + r) * G + c * p.KC;
+            const unsigned at = dst + L.wt + r * L.rsc * sizeof(T);
+            if (CS > 1)
+              bulk_copy_mc(at, row, bytes, full_bar(bars, slot), mask);
+            else
+              bulk_copy(at, row, bytes, full_bar(bars, slot));
+          }
+        }
+      }
+      for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
         const int unit = u + s / 4, q = s % 4;
         // dgates_seq[k] of `unit` is complete; for unit u this also says
         // that every CTA of the cluster is past its product of step e-1
@@ -206,6 +266,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int cell = tid; cell < rows * N; cell += CONSUMERS) {
         const int m = cell / N, c = cell % N, row = r0 + m;
         const int col = u * H + t0 + c;
+        if (c >= nv) continue;
         const T* x = xin + m * SEGS * N + c;
         float dh, dc;
         if (kk == 0) {
@@ -245,7 +306,35 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       float acc[SETS][NT][3][4];
       zero_acc(acc);
-      for (int s = 0; s < nstage; ++s, ++g) {
+      for (int s = 0; STREAM && s < nstage; ++s) {
+        for (int c = 0; c < nc; ++c, ++g) {
+          const int slot = g % NBUF;
+          mbar_wait(full_bar(bars, slot), (g / NBUF) & 1);
+          const int kv = (min(p.KC, H - c * p.KC) + L.kw - 1) / L.kw;
+          const unsigned char* sp = smem + L.buf + (size_t)slot * L.slot;
+          const T* stg = reinterpret_cast<const T*>(sp + L.wt);
+          const unsigned* lo_row = reinterpret_cast<const unsigned*>(
+              stg + (size_t)(mtile * 16 + g8) * L.rsc);
+          const unsigned* hi_row = reinterpret_cast<const unsigned*>(
+              stg + (size_t)(mtile * 16 + g8 + 8) * L.rsc);
+          const uint2* wb2 = reinterpret_cast<const uint2*>(sp) + lane;
+          stage_product<T, NT, SETS>(
+              acc, slice, kv, L.ks,
+              [&](int j, unsigned (&a)[4]) {
+                a[0] = lo_row[8 * j + t4];
+                a[1] = hi_row[8 * j + t4];
+                a[2] = lo_row[8 * j + t4 + 4];
+                a[3] = hi_row[8 * j + t4 + 4];
+              },
+              [&](int j, int n, unsigned (&b)[2]) {
+                const uint2 wv = wb2[(n * L.kpc + j) * 32];
+                b[0] = wv.x;
+                b[1] = wv.y;
+              });
+          release_slot(empty_bar(bars, slot), CS, lane);
+        }
+      }
+      for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
         const Slot sl = stage_slot(ring, NBUF, g, s, e);
         mbar_wait(full_bar(bars, sl.buf), sl.use & 1);
         const T* stg = buf_s + (size_t)sl.buf * L.rows * L.rs;
@@ -287,6 +376,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       consumers_sync();
       for (int cell = tid; cell < rows * N; cell += CONSUMERS) {
         const int m = cell / N, c = cell % N, row = r0 + m;
+        if (c >= nv) continue;
         const float* pp = part + (size_t)m * L.ps + c;
         float dz = pp[0];
         for (int s = 1; s < L.ks; ++s)
@@ -304,25 +394,31 @@ __global__ void __launch_bounds__(THREADS, 1)
   grid_end(CS);
 }
 
-// the kernel for N state columns a CTA, N in {8, 16, 32}
-template <typename T>
+// the kernel for N state columns a CTA: N in {8, 16, 32} resident, also 64
+// streamed
+template <typename T, bool STREAM>
 const void* kernel_for(int N) {
   switch (N) {
-    case 8: return (const void*)wavefront_grid_bwd_kernel<T, 1>;
-    case 16: return (const void*)wavefront_grid_bwd_kernel<T, 2>;
-    case 32: return (const void*)wavefront_grid_bwd_kernel<T, 4>;
+    case 8: return (const void*)wavefront_grid_bwd_kernel<T, 1, STREAM>;
+    case 16: return (const void*)wavefront_grid_bwd_kernel<T, 2, STREAM>;
+    case 32: return (const void*)wavefront_grid_bwd_kernel<T, 4, STREAM>;
+    case 64:
+      return STREAM ? (const void*)wavefront_grid_bwd_kernel<T, 8, true>
+                    : nullptr;
   }
   return nullptr;
 }
 
-template <typename T>
+template <typename T, bool STREAM>
 int launch(const void* wb, const void* gates_seq, const void* c_seq,
            const void* c_prev_seq, const void* dy, const void* dh0,
            const void* dc0, const void* lvec, void* dgates_seq, void* dh_fin,
            void* dc_fin, void* flags, int K, int B, int U, int H, int S, int N,
-           int CS, int MB, int NBUF, int smem, void* stream) {
-  if (!grid_args_ok(H, N, CS, MB, NBUF, smem,
-                    grid_layout<T, false>(H, N, MB, NBUF).total))
+           int CS, int MB, int NBUF, int KC, int smem, void* stream) {
+  const Layout L = STREAM ? stream_layout<T, false>(H, N, MB, NBUF, KC)
+                          : grid_layout<T, false>(H, N, MB, NBUF);
+  if (STREAM ? !stream_args_ok(H, N, CS, MB, NBUF, KC, L.kw, smem, L.total)
+             : !grid_args_ok(H, N, CS, MB, NBUF, smem, L.total))
     return (int)cudaErrorInvalidValue;
   BwdParams<T> p = {(const T*)wb,        (const T*)gates_seq,
                     (const T*)c_seq,     (const T*)c_prev_seq,
@@ -330,8 +426,9 @@ int launch(const void* wb, const void* gates_seq, const void* c_seq,
                     (const T*)dc0,       (const int*)lvec,
                     (T*)dgates_seq,      (T*)dh_fin,
                     (T*)dc_fin,          (unsigned*)flags,
-                    K, B, U, H, S, N, CS, MB, NBUF};
-  return grid_launch(kernel_for<T>(N), &p, U * H / N, CS, smem, stream);
+                    K, B, U, H, S, N, CS, MB, NBUF, KC};
+  return grid_launch(kernel_for<T, STREAM>(N), &p, U * ((H + N - 1) / N), CS,
+                     smem, stream);
 }
 
 }  // namespace
@@ -341,18 +438,36 @@ int launch(const void* wb, const void* gates_seq, const void* c_seq,
       const void *c_prev_seq, const void *dy, const void *dh0,             \
       const void *dc0, const void *lvec, void *dgates_seq, void *dh_fin,   \
       void *dc_fin, void *flags, int K, int B, int U, int H, int S, int N, \
-      int CS, int MB, int NBUF, int smem, void *stream
+      int CS, int MB, int NBUF
 
-extern "C" int wavefront_grid_bwd_f32(GRID_BWD_ARGS) {
-  return launch<float>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0, lvec,
-                       dgates_seq, dh_fin, dc_fin, flags, K, B, U, H, S, N,
-                       CS, MB, NBUF, smem, stream);
+extern "C" int wavefront_grid_bwd_f32(GRID_BWD_ARGS, int smem, void* stream) {
+  return launch<float, false>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0,
+                              lvec, dgates_seq, dh_fin, dc_fin, flags, K, B,
+                              U, H, S, N, CS, MB, NBUF, 0, smem, stream);
 }
 
-extern "C" int wavefront_grid_bwd_bf16(GRID_BWD_ARGS) {
-  return launch<__nv_bfloat16>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0,
-                               lvec, dgates_seq, dh_fin, dc_fin, flags, K, B,
-                               U, H, S, N, CS, MB, NBUF, smem, stream);
+extern "C" int wavefront_grid_bwd_bf16(GRID_BWD_ARGS, int smem, void* stream) {
+  return launch<__nv_bfloat16, false>(wb, gates_seq, c_seq, c_prev_seq, dy,
+                                      dh0, dc0, lvec, dgates_seq, dh_fin,
+                                      dc_fin, flags, K, B, U, H, S, N, CS, MB,
+                                      NBUF, 0, smem, stream);
+}
+
+// The streamed mode: `wb` is the wrapper's tiles (kernels/wavefront.py::
+// _stream_tiles), KC the depths of a chunk; the other arguments as above
+extern "C" int wavefront_grid_bwd_stream_f32(GRID_BWD_ARGS, int KC, int smem,
+                                             void* stream) {
+  return launch<float, true>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0,
+                             lvec, dgates_seq, dh_fin, dc_fin, flags, K, B, U,
+                             H, S, N, CS, MB, NBUF, KC, smem, stream);
+}
+
+extern "C" int wavefront_grid_bwd_stream_bf16(GRID_BWD_ARGS, int KC, int smem,
+                                              void* stream) {
+  return launch<__nv_bfloat16, true>(wb, gates_seq, c_seq, c_prev_seq, dy,
+                                     dh0, dc0, lvec, dgates_seq, dh_fin,
+                                     dc_fin, flags, K, B, U, H, S, N, CS, MB,
+                                     NBUF, KC, smem, stream);
 }
 
 // How many CTAs of the reverse wavefront (four n8 tiles) the card holds at
@@ -360,6 +475,15 @@ extern "C" int wavefront_grid_bwd_bf16(GRID_BWD_ARGS) {
 // CUDA error. The narrower ones have the same shared memory and no more
 // registers.
 extern "C" int wavefront_grid_bwd_max_ctas(int bf16, int CS, int smem) {
-  return grid_max_ctas(
-      bf16 ? kernel_for<__nv_bfloat16>(32) : kernel_for<float>(32), smem, CS);
+  return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, false>(32)
+                            : kernel_for<float, false>(32),
+                       smem, CS);
+}
+
+// ... of the streamed reverse wavefront (eight n8 tiles)
+extern "C" int wavefront_grid_bwd_stream_max_ctas(int bf16, int CS,
+                                                  int smem) {
+  return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, true>(64)
+                            : kernel_for<float, true>(64),
+                       smem, CS);
 }

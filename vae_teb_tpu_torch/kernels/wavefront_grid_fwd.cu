@@ -47,6 +47,27 @@
 //     16-byte words; warps split the gate columns' m-tiles and, where there
 //     are fewer than 8, the depth.
 //
+// Streamed weights (entry points wavefront_grid_{fwd,fwd_res}_stream_*,
+// the plan kind "stream"): where no N leaves the 2H x 4N slice room in 227
+// KB of shared memory (fp32 H over 520, bf16 over 1056), or a unit's CTAs
+// at N <= 32 outnumber what the card holds, the same kernel runs with
+// nothing that grows with H resident. The wrapper packs every CTA's slice
+// in global memory, each (unit, column block, stage, chunk of KC depths)
+// one contiguous tile of 4N x KC values in A-fragment order (a unit of
+// layer 0 has no feed stage and no tile for it), every call, on the
+// stream (kernels/wavefront.py::_stream_tiles). Each step is a k-loop over
+// the stages' chunks through a ring of slots: the producer bulk-copies a
+// chunk's weight tile and the chunk's KC columns of the stage's h rows
+// (multicast to the cluster) into one slot, counted on its `full`
+// mbarrier; the consumers' mma on one slot overlaps the copies into the
+// next ones. What bounds it is no longer the step's hand-off alone but
+// the weights' bytes: the whole slice crosses from L2 (or, past L2, from
+// HBM) into the SM every step. It computes what the resident mode
+// computes: only the summation order differs, each warp's accumulator
+// sets restarting their k-tile count at every chunk, which
+// tests/test_torch_streamed.py emulates; the plain version
+// (kernels/wavefront_ref.py) is its oracle as it is the resident mode's.
+//
 // Plain C interface: each entry point launches on the given stream and
 // returns the CUDA error of the launch (0 on success).
 
@@ -69,6 +90,7 @@ struct FwdParams {
   T* c_fin;
   unsigned* flags;
   int K, B, U, H, S, N, CS, MB, NBUF;
+  int KC;  // streamed mode: depths a chunk
 };
 
 // Wf[u] at depth dd (own rows 0..H-1, feed rows H..2H-1), gate column
@@ -82,22 +104,38 @@ __device__ __forceinline__ unsigned wf_bits(const FwdParams<T>& p, int u,
   return reinterpret_cast<const unsigned short*>(p.wf)[i];
 }
 
-// NT: n8 tiles of batch rows a pass, 1-4
-template <typename T, bool RESIDUALS, int NT>
+// NT: n8 tiles of batch rows a pass, 1-4; STREAM: the streamed mode, whose
+// warps take MTW m-tiles each (2 at N = 64, else 1)
+template <typename T, bool RESIDUALS, int NT, bool STREAM, int MTW>
 __global__ void __launch_bounds__(THREADS, 1)
     wavefront_grid_fwd_kernel(const FwdParams<T> p) {
   constexpr bool TF32 = sizeof(T) == 4;
   constexpr int SETS = sets_for(NT);
   const int K = p.K, B = p.B, H = p.H, N = p.N, CS = p.CS, MB = p.MB;
-  const int NBUF = p.NBUF, UH = p.U * H, G = 4 * UH, per_unit = H / N;
+  // CTAs a unit: the streamed mode's last one may own fewer than N columns
+  const int NBUF = p.NBUF, UH = p.U * H, G = 4 * UH;
+  const int per_unit = (H + N - 1) / N;
   const int u = blockIdx.x / per_unit, t0 = (blockIdx.x % per_unit) * N;
+  const int nv = min(N, H - t0);  // this CTA's columns
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, t4 = lane % 4;
   const int layer = p.lvec[u];
   const int nstage = layer > 0 ? 2 : 1;  // unit u, then unit u-1
-  const Layout L = grid_layout<T, true>(H, N, MB, NBUF);
+  const Layout L = STREAM ? stream_layout<T, true>(H, N, MB, NBUF, p.KC)
+                          : grid_layout<T, true>(H, N, MB, NBUF);
   const int KTT = L.stages * L.kts;
   const int E = (B + MB - 1) / MB * K;  // steps of all passes
+  // streamed mode: chunks a stage, and this CTA's first weight tile
+  const int nc = STREAM ? (H + p.KC - 1) / p.KC : 0;
+  const size_t tile = L.wt / sizeof(T);
+  const T* tiles =
+      STREAM ? p.wf + (units_tiles(u, per_unit, nc,
+                                   [&](int v) {
+                                     return p.lvec[v] > 0 ? 2 : 1;
+                                   }) +
+                       (size_t)(t0 / N) * nstage * nc) *
+                          tile
+             : nullptr;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned bars = smem_addr(smem);
@@ -109,15 +147,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* h_c = reinterpret_cast<float*>(smem + L.carry);  // [MB][N]
   float* c_c = h_c + MB * N;
 
-  grid_init_barriers(bars, NBUF, CS);
-  for (int i = tid; i < (int)(NBUF * L.rows * L.rs * sizeof(T) / 16);
-       i += THREADS)
+  grid_init_barriers(bars, NBUF, CS, STREAM ? WARPS : 1);
+  // the ring starts zeroed: a chunk shorter than KC leaves earlier rows'
+  // (finite) values past its end, which meet zero weights
+  for (int i = tid; i < (int)((L.part - L.buf) / 16); i += THREADS)
     reinterpret_cast<uint4*>(smem + L.buf)[i] = make_uint4(0, 0, 0, 0);
   // A fragments of the weight slice: [mt][KTT][lane][4], register r of
   // lane (g, t) holding A[m][d] at m = 16 mt + g (+8 for r odd), d = kw j +
   // (t, or 2t and 2t+1 for bf16) (+kw/2 for r >= 2); A[q N + c][s H + d] =
-  // Wf[u][s H + d][q H + t0 + c], zero past H and for a missing stage
-  for (int i = tid; i < L.mt * KTT * 128; i += THREADS) {
+  // Wf[u][s H + d][q H + t0 + c], zero past H and for a missing stage. The
+  // streamed mode's tiles hold the same fragments, [mt][kpc][lane][4] a
+  // chunk.
+  for (int i = tid; !STREAM && i < L.mt * KTT * 128; i += THREADS) {
     const int r = i & 3, ln = (i >> 2) & 31, f = i >> 7;
     const int kt = f % KTT, mtile = f / KTT, s = kt / L.kts;
     const int m = mtile * 16 + ln / 4 + (r & 1) * 8, q = m / N, c = m % N;
@@ -135,7 +176,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     w_s[i] = v;
   }
   for (int i = tid; i < 4 * N; i += THREADS)
-    b_s[i] = load_f32(p.b + (i / N) * UH + u * H + t0 + i % N);
+    b_s[i] = i % N < nv ? load_f32(p.b + (i / N) * UH + u * H + t0 + i % N)
+                        : 0.f;
   grid_start(CS);
 
   const bool ring = NBUF < nstage;  // else stage s keeps buffer s
@@ -156,7 +198,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         T* dst = in_s + ((size_t)(j * MB + m) * 4 + q_in) * N;
         const T* src =
             p.xs + ((size_t)k * B + r0 + m) * G + q_in * UH + u * H + t0;
-        for (int v = 0; v < N; v += V) cp_async16(dst + v, src + v);
+        for (int v = 0; v < nv; v += V) cp_async16(dst + v, src + v);
       }
       cp_async_arrive(in_bar(bars, j));
     };
@@ -167,7 +209,32 @@ __global__ void __launch_bounds__(THREADS, 1)
       const T* src = kk ? p.h_seq + (size_t)(kk - 1) * B * UH : p.h0;
       // a new pass reads h0, but refills buffers the last pass read
       if (kk == 0 && e > 0) wait_flag(own, e * per_unit, lane);
-      for (int s = 0; s < nstage; ++s, ++g) {
+      for (int s = 0; STREAM && s < nstage; ++s) {
+        if (kk > 0)
+          wait_flag(p.flags + (u - s) * FLAG_STRIDE, e * per_unit, lane);
+        for (int c = 0; c < nc; ++c, ++g) {
+          // slot g % NBUF: the chunk's weight tile, then its h columns
+          const int slot = g % NBUF, use = g / NBUF;
+          if (use > 0) mbar_wait(empty_bar(bars, slot), (use - 1) & 1);
+          const unsigned bytes = min(p.KC, H - c * p.KC) * sizeof(T);
+          const unsigned dst = ring_s + slot * L.slot;
+          if (lane == 0) {
+            mbar_expect(full_bar(bars, slot), rows * bytes + L.wt);
+            bulk_copy(dst, tiles + (size_t)(s * nc + c) * tile, L.wt,
+                      full_bar(bars, slot));
+          }
+          __syncwarp();
+          for (int r = rank + CS * lane; r < rows; r += 32 * CS) {
+            const T* row = src + (size_t)(r0 + r) * UH + (u - s) * H + c * p.KC;
+            const unsigned at = dst + L.wt + r * L.rsc * sizeof(T);
+            if (CS > 1)
+              bulk_copy_mc(at, row, bytes, full_bar(bars, slot), mask);
+            else
+              bulk_copy(at, row, bytes, full_bar(bars, slot));
+          }
+        }
+      }
+      for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
         // h_seq[kk-1] of unit u - s is complete
         if (kk > 0)
           wait_flag(p.flags + (u - s) * FLAG_STRIDE, e * per_unit, lane);
@@ -193,14 +260,46 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // ---- consumers: the product, then the cells ----
-    const int mtile = warp % L.mt, slice = warp / L.mt;
+    const int wmt = L.mt < WARPS ? L.mt : WARPS;  // m-tiles a round of warps
+    const int mtile = warp % wmt, slice = warp / wmt;
     int g = 0;
     for (int e = 0; e < E; ++e) {
       const int kk = e % K, r0 = e / K * MB, rows = min(MB, B - r0);
       const bool valid = layer <= kk && kk < p.S + layer;
-      float acc[SETS][NT][3][4];
-      zero_acc(acc);
-      for (int s = 0; s < nstage; ++s, ++g) {
+      float acc[MTW][SETS][NT][3][4];
+#pragma unroll
+      for (int mi = 0; mi < MTW; ++mi) zero_acc(acc[mi]);
+      for (int s = 0; STREAM && s < nstage; ++s) {
+        for (int c = 0; c < nc; ++c, ++g) {
+          const int slot = g % NBUF;
+          mbar_wait(full_bar(bars, slot), (g / NBUF) & 1);
+          const int kv = (min(p.KC, H - c * p.KC) + L.kw - 1) / L.kw;
+          const unsigned char* sp = smem + L.buf + (size_t)slot * L.slot;
+          const T* stg = reinterpret_cast<const T*>(sp + L.wt);
+#pragma unroll
+          for (int mi = 0; mi < MTW; ++mi) {
+            const uint4* wf4 = reinterpret_cast<const uint4*>(sp) +
+                               (mtile + mi * WARPS) * L.kpc * 32 + lane;
+            stage_product<T, NT, SETS>(
+                acc[mi], slice, kv, L.ks,
+                [&](int j, unsigned (&a)[4]) {
+                  const uint4 wv = wf4[j * 32];
+                  a[0] = wv.x;
+                  a[1] = wv.y;
+                  a[2] = wv.z;
+                  a[3] = wv.w;
+                },
+                [&](int j, int n, unsigned (&b)[2]) {
+                  const unsigned* hw = reinterpret_cast<const unsigned*>(
+                      stg + (size_t)(n * 8 + g8) * L.rsc + j * L.kw);
+                  b[0] = hw[t4];
+                  b[1] = hw[t4 + 4];
+                });
+          }
+          release_slot(empty_bar(bars, slot), CS, lane);
+        }
+      }
+      for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
         const Slot sl = stage_slot(ring, NBUF, g, s, e);
         mbar_wait(full_bar(bars, sl.buf), sl.use & 1);
         const T* stg = buf_s + (size_t)sl.buf * L.rows * L.rs;
@@ -209,7 +308,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const uint4* wf4 = reinterpret_cast<const uint4*>(w_s) +
                            (mtile * KTT + s * L.kts) * 32 + lane;
         stage_product<T, NT, SETS>(
-            acc, slice, L.kts, L.ks,
+            acc[0], slice, L.kts, L.ks,
             [&](int j, unsigned (&a)[4]) {
               const uint4 wv = wf4[j * 32];
               a[0] = wv.x;
@@ -228,14 +327,16 @@ __global__ void __launch_bounds__(THREADS, 1)
       // this slice's sums: D[m][n] at m = 16 mtile + g (+8), n = 8 nt + 2t
       // (+1) -> part[slice][n][m]
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int mi = 0; mi < MTW; ++mi)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int m = mtile * 16 + g8 + (i / 2) * 8;
-          const int row = n * 8 + 2 * t4 + i % 2;
-          part[((size_t)slice * L.rows + row) * L.ps + m] =
-              acc_sum(acc, n, i, TF32);
-        }
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int m = (mtile + mi * WARPS) * 16 + g8 + (i / 2) * 8;
+            const int row = n * 8 + 2 * t4 + i % 2;
+            part[((size_t)slice * L.rows + row) * L.ps + m] =
+                acc_sum(acc[mi], n, i, TF32);
+          }
       consumers_sync();
       // cells: the pass's rows x N; the carried h, c stay in shared memory
       mbar_wait(in_bar(bars, e & 1), (e >> 1) & 1);
@@ -243,6 +344,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int cell = tid; cell < rows * N; cell += CONSUMERS) {
         const int m = cell / N, c = cell % N, row = r0 + m;
         const int col = u * H + t0 + c;
+        if (c >= nv) continue;
         float gq[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -291,34 +393,47 @@ __global__ void __launch_bounds__(THREADS, 1)
   grid_end(CS);
 }
 
-// the kernel for `nt` n8 tiles of batch rows a pass
-template <typename T, bool RESIDUALS>
+// the kernel for `nt` n8 tiles of batch rows a pass, resident or streamed
+// (with `mtw` m-tiles a warp)
+template <typename T, bool RESIDUALS, bool STREAM, int MTW>
 const void* kernel_for(int nt) {
   switch (nt) {
-    case 1: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 1>;
-    case 2: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 2>;
-    case 3: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 3>;
-    case 4: return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 4>;
+    case 1:
+      return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 1, STREAM,
+                                                    MTW>;
+    case 2:
+      return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 2, STREAM,
+                                                    MTW>;
+    case 3:
+      return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 3, STREAM,
+                                                    MTW>;
+    case 4:
+      return (const void*)wavefront_grid_fwd_kernel<T, RESIDUALS, 4, STREAM,
+                                                    MTW>;
   }
   return nullptr;
 }
 
-template <typename T, bool RESIDUALS>
+template <typename T, bool RESIDUALS, bool STREAM>
 int launch(const void* w, const void* b, const void* xs, const void* h0,
            const void* c0, const void* lvec, void* h_seq, void* gates_seq,
            void* c_seq, void* h_fin, void* c_fin, void* flags, int K, int B,
-           int U, int H, int S, int N, int CS, int MB, int NBUF, int smem,
-           void* stream) {
-  const Layout L = grid_layout<T, true>(H, N, MB, NBUF);
-  if (!grid_args_ok(H, N, CS, MB, NBUF, smem, L.total) || NBUF > 2)
+           int U, int H, int S, int N, int CS, int MB, int NBUF, int KC,
+           int smem, void* stream) {
+  const Layout L = STREAM ? stream_layout<T, true>(H, N, MB, NBUF, KC)
+                          : grid_layout<T, true>(H, N, MB, NBUF);
+  if (STREAM ? !stream_args_ok(H, N, CS, MB, NBUF, KC, L.kw, smem, L.total)
+             : !grid_args_ok(H, N, CS, MB, NBUF, smem, L.total) || NBUF > 2)
     return (int)cudaErrorInvalidValue;
   FwdParams<T> p = {(const T*)w,      (const T*)b,     (const T*)xs,
                     (const T*)h0,     (const T*)c0,    (const int*)lvec,
                     (T*)h_seq,        (T*)gates_seq,   (T*)c_seq,
                     (T*)h_fin,        (T*)c_fin,       (unsigned*)flags,
-                    K, B, U, H, S, N, CS, MB, NBUF};
-  return grid_launch(kernel_for<T, RESIDUALS>(L.nt), &p, U * H / N, CS, smem,
-                     stream);
+                    K, B, U, H, S, N, CS, MB, NBUF, KC};
+  const void* kernel = STREAM && N == 64
+                           ? kernel_for<T, RESIDUALS, true, 2>(L.nt)
+                           : kernel_for<T, RESIDUALS, STREAM, 1>(L.nt);
+  return grid_launch(kernel, &p, U * ((H + N - 1) / N), CS, smem, stream);
 }
 
 }  // namespace
@@ -331,29 +446,65 @@ int launch(const void* w, const void* b, const void* xs, const void* h0,
       int N, int CS, int MB, int NBUF, int smem, void *stream
 
 extern "C" int wavefront_grid_fwd_f32(GRID_FWD_ARGS, GRID_FWD_INTS) {
-  return launch<float, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr, nullptr,
-                              h_fin, c_fin, flags, K, B, U, H, S, N, CS, MB,
-                              NBUF, smem, stream);
+  return launch<float, false, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr,
+                                     nullptr, h_fin, c_fin, flags, K, B, U, H,
+                                     S, N, CS, MB, NBUF, 0, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_bf16(GRID_FWD_ARGS, GRID_FWD_INTS) {
-  return launch<__nv_bfloat16, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr,
-                                      nullptr, h_fin, c_fin, flags, K, B, U,
-                                      H, S, N, CS, MB, NBUF, smem, stream);
+  return launch<__nv_bfloat16, false, false>(
+      w, b, xs, h0, c0, lvec, h_seq, nullptr, nullptr, h_fin, c_fin, flags, K,
+      B, U, H, S, N, CS, MB, NBUF, 0, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_res_f32(GRID_FWD_ARGS, void* gates_seq,
                                           void* c_seq, GRID_FWD_INTS) {
-  return launch<float, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq, c_seq,
-                             h_fin, c_fin, flags, K, B, U, H, S, N, CS, MB,
-                             NBUF, smem, stream);
+  return launch<float, true, false>(w, b, xs, h0, c0, lvec, h_seq, gates_seq,
+                                    c_seq, h_fin, c_fin, flags, K, B, U, H, S,
+                                    N, CS, MB, NBUF, 0, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_res_bf16(GRID_FWD_ARGS, void* gates_seq,
                                            void* c_seq, GRID_FWD_INTS) {
-  return launch<__nv_bfloat16, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq,
-                                     c_seq, h_fin, c_fin, flags, K, B, U, H,
-                                     S, N, CS, MB, NBUF, smem, stream);
+  return launch<__nv_bfloat16, true, false>(
+      w, b, xs, h0, c0, lvec, h_seq, gates_seq, c_seq, h_fin, c_fin, flags, K,
+      B, U, H, S, N, CS, MB, NBUF, 0, smem, stream);
+}
+
+// The streamed mode: `w` is the wrapper's tiles (kernels/wavefront.py::
+// _stream_tiles), KC the depths of a chunk; the other arguments as above
+#define GRID_FWD_STREAM_INTS                                                 \
+  void *h_fin, void *c_fin, void *flags, int K, int B, int U, int H, int S, \
+      int N, int CS, int MB, int NBUF, int KC, int smem, void *stream
+
+extern "C" int wavefront_grid_fwd_stream_f32(GRID_FWD_ARGS,
+                                             GRID_FWD_STREAM_INTS) {
+  return launch<float, false, true>(w, b, xs, h0, c0, lvec, h_seq, nullptr,
+                                    nullptr, h_fin, c_fin, flags, K, B, U, H,
+                                    S, N, CS, MB, NBUF, KC, smem, stream);
+}
+
+extern "C" int wavefront_grid_fwd_stream_bf16(GRID_FWD_ARGS,
+                                              GRID_FWD_STREAM_INTS) {
+  return launch<__nv_bfloat16, false, true>(
+      w, b, xs, h0, c0, lvec, h_seq, nullptr, nullptr, h_fin, c_fin, flags, K,
+      B, U, H, S, N, CS, MB, NBUF, KC, smem, stream);
+}
+
+extern "C" int wavefront_grid_fwd_res_stream_f32(GRID_FWD_ARGS,
+                                                 void* gates_seq, void* c_seq,
+                                                 GRID_FWD_STREAM_INTS) {
+  return launch<float, true, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq,
+                                   c_seq, h_fin, c_fin, flags, K, B, U, H, S,
+                                   N, CS, MB, NBUF, KC, smem, stream);
+}
+
+extern "C" int wavefront_grid_fwd_res_stream_bf16(GRID_FWD_ARGS,
+                                                  void* gates_seq, void* c_seq,
+                                                  GRID_FWD_STREAM_INTS) {
+  return launch<__nv_bfloat16, true, true>(
+      w, b, xs, h0, c0, lvec, h_seq, gates_seq, c_seq, h_fin, c_fin, flags, K,
+      B, U, H, S, N, CS, MB, NBUF, KC, smem, stream);
 }
 
 // How many CTAs of the residual forward (four n8 tiles) the card holds at
@@ -361,7 +512,15 @@ extern "C" int wavefront_grid_fwd_res_bf16(GRID_FWD_ARGS, void* gates_seq,
 // CUDA error. The serving variant and the narrower ones have the same
 // shared memory and no more registers.
 extern "C" int wavefront_grid_fwd_max_ctas(int bf16, int CS, int smem) {
-  return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, true>(4)
-                            : kernel_for<float, true>(4),
+  return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, true, false, 1>(4)
+                            : kernel_for<float, true, false, 1>(4),
+                       smem, CS);
+}
+
+// ... of the streamed residual forward (four n8 tiles, two m-tiles a warp)
+extern "C" int wavefront_grid_fwd_stream_max_ctas(int bf16, int CS,
+                                                  int smem) {
+  return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, true, true, 2>(4)
+                            : kernel_for<float, true, true, 2>(4),
                        smem, CS);
 }
