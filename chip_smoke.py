@@ -231,10 +231,15 @@ Phases, each of which raises on failure (exit code 1):
      three streamed entries against their plain versions at (depths, H)
      = (1, 1024), (1+1, 1024), (2+2, 1024: two feed blocks) fp32 and
      (1+1, 1536) bf16, B=32, K=303, at phase 3's bars, with times
-     (median of 5), plain times, bound, cuDNN and the weight bytes a step
-     streams with the rate achieved; the plan the card chose at (1,
-     1024) against chunks of 8 and 16 k-tiles and clusters of 1 (forward
-     and reverse times); then SeqVaeTeb(lstm_hidden_dim=1024)
+     (median of 5), plain times, bound, cuDNN; for each, the plan's
+     resident share, the chunks a CTA streams a step, the weight and row
+     bytes a step reads from L2 with the rate achieved, and the L2 floor:
+     the same launches timed from a build without the streamed products
+     (-DWAVEFRONT_STREAM_NO_PRODUCT, libraries of their own, swapped in
+     for the timing only); the plan the card chose at (1+1, 1024) fp32
+     and (1+1, 1536) bf16 against no resident share and, where it took
+     another cluster size, clusters of 2 (forward and reverse times, each
+     at phase 3's bars); then SeqVaeTeb(lstm_hidden_dim=1024)
      fp32 and 1536 bf16 as (a, b) (serving forward and train step against
      the plain recurrence in the same groups, one streamed launch a group
      each way, every launch streamed), the encoder LSTMs alone against
@@ -3718,6 +3723,9 @@ COVERAGE_STREAMED_KERNELS = (((1,), 1024, torch.float32),
                              ((2, 2), 1024, torch.float32),
                              ((1, 1), 1536, torch.bfloat16))
 COVERAGE_STREAMED_PLAIN_RUNS = 3   # plain-version timings of (d)
+# (d)'s plans timed against a resident share of 0 and clusters of 2
+COVERAGE_STREAM_PLANS = (((1, 1), 1024, torch.float32),
+                         ((1, 1), 1536, torch.bfloat16))
 COVERAGE_BATCH = 32
 # phase 15's timed runs (median of 5, after a warm-up): it times 8 shapes
 # of kernels and cuDNN (bf16 cuDNN 20-63 ms a call) and the encoder LSTMs
@@ -4004,66 +4012,183 @@ def _lstm_times(device, model, batch, gen, label):
     return times, err, plain <= plain_tol
 
 
+def _stream_traffic(plan, depths, H, item, fwd):
+    """What a streamed launch of `plan` over streams of `depths` layers of
+    H moves, forward or reverse: (the resident share of its weight bytes,
+    the distinct (chunks streamed, chunks) of a CTA's step, the weight
+    bytes a step streams from L2 and the row bytes a step reads from L2,
+    over all CTAs). A forward CTA's step holds 1 stage of ceil(H / kc)
+    chunks, 2 for a unit with a feed block; a reverse CTA's 4, 8 for a
+    unit feeding the one above; each CTA keeps min(kr, chunks) resident
+    and reads 1/CS of every chunk's rows."""
+    kc = plan.fwd_chunk if fwd else plan.bwd_chunk
+    kr = plan.fwd_resident if fwd else plan.bwd_resident
+    nc, per_unit = -(-H // kc), -(-H // plan.cols)
+    tile = (4 if fwd else 1) * plan.cols * kc * item
+    rows = -(-plan.rows // (8 if fwd else 16)) * (8 if fwd else 16)
+    chunks = [nc * ((2 if l else 1) if fwd else (8 if l + 1 < d else 4))
+              for d in depths for l in range(d)]
+    streamed = [max(0, c - kr) for c in chunks]
+    return (1 - sum(streamed) / sum(chunks), sorted(set(zip(streamed, chunks))),
+            per_unit * sum(streamed) * tile,
+            per_unit * sum(chunks) * rows * kc * item // plan.cluster)
+
+
+def _ablated_kernels():
+    """The grid kernels built again with WAVEFRONT_STREAM_NO_PRODUCT (the
+    streamed mode's k-loop without its products: the copies, hand-offs
+    and cells alone) into libraries of their own beside the package's
+    builds, one nvcc each, in parallel: {source: library}."""
+    import ctypes
+    import hashlib
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from vae_teb_tpu_torch.kernels import build
+    flags = (*build.NVCC_FLAGS, "-DWAVEFRONT_STREAM_NO_PRODUCT")
+
+    def one(src):
+        digest = hashlib.sha256(" ".join(flags).encode())
+        for name in [src] + sorted(n for n in os.listdir(build.KERNEL_DIR)
+                                   if n.endswith(".cuh")):
+            with open(os.path.join(build.KERNEL_DIR, name), "rb") as f:
+                digest.update(f.read())
+        path = os.path.join(build.BUILD_DIR, f"lib{src[:-3]}-no-product-"
+                            f"{digest.hexdigest()[:16]}.so")
+        if not os.path.exists(path):
+            os.makedirs(build.BUILD_DIR, exist_ok=True)
+            subprocess.run([build._nvcc(), *flags, "-o", path,
+                            os.path.join(build.KERNEL_DIR, src)], check=True,
+                           capture_output=True)
+        return ctypes.CDLL(path)
+    sources = ("wavefront_grid_fwd.cu", "wavefront_grid_bwd.cu")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        return dict(zip(sources, pool.map(one, sources)))
+
+
+def _l2_floor(device, shapes):
+    """(d)'s L2 floor: each streamed entry at each of `shapes` (depths, H,
+    dtype; B=32, K=303) timed (CUDA events, median of COVERAGE_TIMED_RUNS)
+    with its products removed (`_ablated_kernels`, swapped in for the
+    timing only), so that what is left is what the design's copies and
+    hand-offs take: {(kind, depths, H, dtype): ms}. The outputs are not
+    the function's and are not checked."""
+    from vae_teb_tpu_torch.kernels import (build, wavefront_bwd,
+                                           wavefront_fwd)
+    gen = torch.Generator().manual_seed(14)
+    runs = {}
+    for depths, h, dtype in shapes:
+        S = 303 - max(depths) + 1
+        args = recurrence_inputs(gen, COVERAGE_BATCH, S, h, depths, dtype,
+                                 device)
+        W, _, xs, _, c0, lvec = args
+        _, _, _, gates, c_seq = wavefront_fwd(*args, S, with_residuals=True)
+        rnd = lambda *shape: (torch.randn(shape, generator=gen) * 0.1).to(
+            device=device, dtype=dtype)
+        UH = c0.shape[1]
+        bargs = (W, gates, c_seq, torch.cat([c0[None], c_seq[:-1]]),
+                 rnd(303, COVERAGE_BATCH, UH), rnd(COVERAGE_BATCH, UH),
+                 rnd(COVERAGE_BATCH, UH), lvec)
+        runs[(depths, h, dtype)] = {
+            "fwd": lambda a=args, s=S: wavefront_fwd(*a, s),
+            "fwd_res": lambda a=args, s=S: wavefront_fwd(*a, s,
+                                                         with_residuals=True),
+            "bwd": lambda b=bargs, s=S: wavefront_bwd(*b, s)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ablated = _ablated_kernels()
+    log(f"coverage (d) L2 floor: built the grid kernels without the streamed "
+        f"products in {time.perf_counter() - t0:.1f} s")
+    saved = dict(build._loaded)
+    out = {}
+    try:
+        build._loaded.update(ablated)
+        for (depths, h, dtype), fns in runs.items():
+            for kind, fn in fns.items():
+                out[(kind, depths, h, dtype)] = cuda_time_ms(
+                    fn, COVERAGE_TIMED_RUNS)
+    finally:
+        build._loaded.clear()
+        build._loaded.update(saved)
+    return out
+
+
 def _stream_plans(device, failed):
-    """(d): the streamed plan the card chose for one unit of H=1024 (fp32,
-    B=32, K=303) against plans it passed over, forced by stubbing the
-    planner's residency and chunk sizes for the call: chunks of 8 and 16
-    k-tiles, and clusters of 1. CUDA-event ms of the serving forward and
-    the reverse (median of COVERAGE_TIMED_RUNS), each plan's outputs held
-    to the plain versions at phase 3's fp32 bars. Returns {name: (plan,
-    fwd_ms, bwd_ms)}."""
+    """(d): the streamed plan the card chose (B=32, K=303) at each of
+    COVERAGE_STREAM_PLANS against the plans it passed over, forced for the
+    call: no resident share (`_stream_ring` answering 0 resident chunks),
+    and clusters of 2 (the residency answering 0 at any other (N, CS))
+    where the plan took another cluster size. CUDA-event ms of the serving
+    forward and the reverse (median of COVERAGE_TIMED_RUNS), each plan's
+    outputs held to the plain versions at phase 3's bars. Returns
+    {(depths, H, dtype, name): (plan, fwd_ms, bwd_ms)}."""
     from vae_teb_tpu_torch.kernels import (wavefront, wavefront_bwd,
                                            wavefront_bwd_plain, wavefront_fwd,
                                            wavefront_fwd_plain)
     gen = torch.Generator().manual_seed(13)
-    S, H = 303, 1024
-    args = recurrence_inputs(gen, COVERAGE_BATCH, S, H, (1,), torch.float32,
-                             device)
-    W, _, xs, _, c0, lvec = args
-    _, _, _, gates, c_seq = wavefront_fwd_plain(*args, S, with_residuals=True)
-    rnd = lambda *shape: torch.randn(shape, generator=gen).to(device)
-    bargs = (W, gates, c_seq, torch.cat([c0[None], c_seq[:-1]]),
-             rnd(S, COVERAGE_BATCH, H), rnd(COVERAGE_BATCH, H),
-             rnd(COVERAGE_BATCH, H), lvec)
-    want_f, want_b = wavefront_fwd_plain(*args, S), wavefront_bwd_plain(
-        *bargs, S)
-    chosen = wavefront._check("plan", args[:5], lvec, xs)
-    resident, ktiles = wavefront._card_grid_resident, wavefront._STREAM_KTILES
     out = {}
-    for name, kts, cs in (("the plan", ktiles, chosen.cluster),
-                          ("chunks of 8 k-tiles", (8,), chosen.cluster),
-                          ("chunks of 16 k-tiles", (16, 8), chosen.cluster),
-                          ("clusters of 1", ktiles, 1)):
-        def forced(dev, dt, stream=False):
+    for depths, H, dtype in COVERAGE_STREAM_PLANS:
+        fp32 = dtype == torch.float32
+        tol, btol = (FP32_TOL, BWD_FP32_TOL) if fp32 else (BF16_TOL,
+                                                           BWD_BF16_TOL)
+        S = 303 - max(depths) + 1
+        args = recurrence_inputs(gen, COVERAGE_BATCH, S, H, depths, dtype,
+                                 device)
+        W, _, xs, _, c0, lvec = args
+        _, _, _, gates, c_seq = wavefront_fwd_plain(*args, S,
+                                                    with_residuals=True)
+        UH = c0.shape[1]
+        rnd = lambda *shape: torch.randn(shape, generator=gen).to(
+            device=device, dtype=dtype)
+        bargs = (W, gates, c_seq, torch.cat([c0[None], c_seq[:-1]]),
+                 rnd(303, COVERAGE_BATCH, UH), rnd(COVERAGE_BATCH, UH),
+                 rnd(COVERAGE_BATCH, UH), lvec)
+        want_f, want_b = wavefront_fwd_plain(*args, S), wavefront_bwd_plain(
+            *bargs, S)
+        chosen = wavefront._check("plan", args[:5], lvec, xs)
+        resident, ring = wavefront._card_grid_resident, wavefront._stream_ring
+        none = lambda *a: (lambda r: r and r[:-1] + (0,))(ring(*a))
+
+        def two(dev, dt, stream=False):
             held = resident(dev, dt, stream)
-            return lambda N, CS, f, b: (held(N, CS, f, b) if stream and (
-                N, CS) == (chosen.cols, cs) else 0)
-        wavefront._card_grid_resident, wavefront._STREAM_KTILES = forced, kts
-        try:
-            plan = wavefront._check("plan", args[:5], lvec, xs)
-            got_f, got_b = wavefront_fwd(*args, S), wavefront_bwd(*bargs, S)
-            torch.cuda.synchronize()
-            ef = max((g - w).abs().max().item()
-                     for g, w in zip(got_f, want_f))
-            eb = max((g - w).abs().max().item() / w.abs().max().item()
-                     for g, w in zip(got_b, want_b))
-            fms = cuda_time_ms(lambda: wavefront_fwd(*args, S),
-                               COVERAGE_TIMED_RUNS)
-            bms = cuda_time_ms(lambda: wavefront_bwd(*bargs, S),
-                               COVERAGE_TIMED_RUNS)
-        finally:
-            wavefront._card_grid_resident = resident
-            wavefront._STREAM_KTILES = ktiles
-        log(f"coverage (d) one unit of H=1024 fp32, B={COVERAGE_BATCH}, "
-            f"K={S}, {name}: N={plan.cols}, clusters of {plan.cluster}, "
-            f"chunks {plan.fwd_chunk} / {plan.bwd_chunk} depths, "
-            f"{plan.fwd_bufs} / {plan.bwd_bufs} slots: forward {fms!r} ms "
-            f"(max-abs {ef!r}), reverse {bms!r} ms (of max {eb!r}) "
-            f"({card()})")
-        if not (ef <= FP32_TOL and eb <= BWD_FP32_TOL):
-            failed.append(f"(d) {name}: {ef}, {eb} against the plain "
-                          f"versions")
-        out[name] = (plan, fms, bms)
+            return lambda N, CS, f, b: (held(N, CS, f, b) if not stream or (
+                N, CS) == (chosen.cols, 2) else 0)
+        variants = [("the plan", resident, ring),
+                    ("no resident share", resident, none)]
+        if chosen.cluster != 2:
+            variants.append(("clusters of 2", two, ring))
+        for name, res, rng in variants:
+            wavefront._card_grid_resident, wavefront._stream_ring = res, rng
+            try:
+                plan = wavefront._check("plan", args[:5], lvec, xs)
+                got_f, got_b = wavefront_fwd(*args, S), wavefront_bwd(*bargs,
+                                                                      S)
+                torch.cuda.synchronize()
+                ef = max((g.float() - w.float()).abs().max().item()
+                         for g, w in zip(got_f, want_f))
+                eb = max((g.float() - w.float()).abs().max().item()
+                         / w.float().abs().max().item()
+                         for g, w in zip(got_b, want_b))
+                fms = cuda_time_ms(lambda: wavefront_fwd(*args, S),
+                                   COVERAGE_TIMED_RUNS)
+                bms = cuda_time_ms(lambda: wavefront_bwd(*bargs, S),
+                                   COVERAGE_TIMED_RUNS)
+            finally:
+                wavefront._card_grid_resident = resident
+                wavefront._stream_ring = ring
+            label = (f"coverage (d) plans, {'+'.join(map(str, depths))} "
+                     f"layers H={H} {str(dtype)[6:]}, B={COVERAGE_BATCH}, "
+                     f"K=303, {name}")
+            log(f"{label}: N={plan.cols}, clusters of {plan.cluster}, weight "
+                f"chunks {plan.fwd_chunk} / {plan.bwd_chunk} depths, rows "
+                f"chunks {plan.fwd_row_chunk} / {plan.bwd_row_chunk} depths, "
+                f"rings of {plan.fwd_bufs} / {plan.bwd_bufs} slots, "
+                f"{plan.fwd_resident} / {plan.bwd_resident} resident "
+                f"chunks: forward {fms!r} ms (max-abs {ef!r}), reverse "
+                f"{bms!r} ms (of max {eb!r}) ({card()})")
+            if not (ef <= tol and eb <= btol):
+                failed.append(f"(d) {label}: {ef}, {eb} against the plain "
+                              f"versions")
+            out[(depths, H, dtype, name)] = (plan, fms, bms)
     return out
 
 
@@ -4206,17 +4331,33 @@ def coverage_phase(device):
             failed.append(f"(d) streamed kernels {depths} H={h}: {e}")
             continue
         report["stream_kernels"][(depths, h, dtype)] = res
-        # the weights a step streams from L2 (or HBM): each unit's
-        # recurrent block and each feed block, H x 4H values
+    # what each launch moves from L2 a step, the rate achieved, and the L2
+    # floor: the same launches with the products removed
+    floor = _l2_floor(device, COVERAGE_STREAMED_KERNELS)
+    report["stream_floor"] = floor
+    from vae_teb_tpu_torch.kernels import wavefront
+    for (depths, h, dtype), res in report["stream_kernels"].items():
         item = torch.empty((), dtype=dtype).element_size()
-        U, feeds = sum(depths), sum(d - 1 for d in depths)
-        step = (U + feeds) * h * 4 * h * item
+        plan = wavefront._launch_plan(
+            COVERAGE_BATCH, sum(depths), h, dtype,
+            grid_resident=wavefront._card_grid_resident(device, dtype),
+            stream_resident=wavefront._card_grid_resident(device, dtype,
+                                                          True))
+        weights = sum(depths + tuple(d - 1 for d in depths)) * h * 4 * h * item
         for kind in ("fwd", "fwd_res", "bwd"):
-            ms = res[(kind, depths, COVERAGE_BATCH, dtype)][1]
-            log(f"coverage (d) streamed {kind} {depths} H={h} "
-                f"{str(dtype)[6:]}: {step} weight bytes a step, K={K}: "
-                f"{step * K / (ms * 1e-3) / 1e12!r} TB/s of weights "
-                f"({card()})")
+            share, chunks, wbytes, rbytes = _stream_traffic(
+                plan, depths, h, item, kind != "bwd")
+            ms, fl = res[(kind, depths, COVERAGE_BATCH, dtype)][1], floor[
+                (kind, depths, h, dtype)]
+            rate = lambda t: (wbytes + rbytes) * 303 / (t * 1e-3) / 1e12
+            log(f"coverage (d) streamed {kind} {'+'.join(map(str, depths))} "
+                f"layers H={h} {str(dtype)[6:]}: N={plan.cols}, clusters of "
+                f"{plan.cluster}, resident share {share!r} of {weights} "
+                f"weight bytes, (chunks streamed, chunks) a CTA's step "
+                f"{chunks}; a step streams {wbytes} weight bytes and reads "
+                f"{rbytes} row bytes from L2: kernel {ms!r} ms, "
+                f"{rate(ms)!r} TB/s; L2 floor (products removed) {fl!r} ms, "
+                f"{rate(fl)!r} TB/s ({card()})")
     report["stream_plans"] = _stream_plans(device, failed)
     log(f"coverage (d) streamed kernels took "
         f"{time.perf_counter() - t_part:.1f} s")
@@ -4446,7 +4587,13 @@ def main(argv) -> int:
                 f"{'+'.join(map(str, d))} layers H={h} {str(dt)[6:]}":
                     [res[(key, d, 32, dt)][i] for i in (0, 1, 2, 3)]
                     + [res[(key, d, 32, dt)][4][0]]
-                for (d, h, dt), res in streamed.items()}})
+                for (d, h, dt), res in streamed.items()},
+            # the same launches with the streamed products removed (the
+            # ablation build of phase 15 (d)), ms
+            "l2_floor_ms": {
+                f"{'+'.join(map(str, d))} layers H={h} {str(dt)[6:]}": ms
+                for (k, d, h, dt), ms in cov_report["stream_floor"].items()
+                if k == key}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

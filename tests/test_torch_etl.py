@@ -40,6 +40,27 @@ def _coeff_err(got, want, kind):
     return np.linalg.norm(got - want) / np.linalg.norm(want)
 
 
+def _coeff_report(name, got, want):
+    """Why field `name` misses its COEFF_BARS bar: its error, and each
+    channel (axis 1, the field's coefficient pairs) whose own error, the
+    same measure over that channel alone, exceeds the bar, with the
+    channel's largest absolute difference."""
+    kind, bar = COEFF_BARS[name]
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    channels = got.shape[1] if got.ndim > 1 else 0
+    moved = []
+    for c in range(channels):
+        g, w = got[:, c], want[:, c]
+        err = (np.abs(g - w).max() / np.abs(want).max() if kind == "max"
+               else np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-300))
+        if err >= bar:
+            moved.append((c, float(err), float(np.abs(g - w).max())))
+    err = float(_coeff_err(got, want, kind))
+    return (f"{name}: {kind} error {err!r} against the bar {bar}; "
+            f"{len(moved)} of {channels} channels over it, (channel, its "
+            f"error, its largest difference): {moved}")
+
+
 def _assert_same_files(got_path, want_path):
     """Same datasets, dtypes, shapes, chunks, maxshape, compression and
     attrs; raw fields bit-equal, coefficients within their bars."""
@@ -223,7 +244,8 @@ def test_write_callback_gets_the_files_windows(built):
             assert got.shape == want.shape, k
             if k in COEFF_BARS:
                 kind, bar = COEFF_BARS[k]
-                assert _coeff_err(got, want, kind) < bar, k
+                assert _coeff_err(got, want, kind) < bar, _coeff_report(
+                    k, got, want)
             else:
                 np.testing.assert_array_equal(got, want, err_msg=k)
 

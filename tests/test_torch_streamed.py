@@ -1,14 +1,21 @@
 """The grid kernels' streamed-weight mode: the plan and the depth groups
 that take it (only where no resident plan fits, every earlier plan kept
-field for field), the tile packer against `unit_blocks`, the streamed
-products' summation order emulated on the CPU against the plain
-recurrence, one run at H=1024 against the JAX package, and, on a card,
-the streamed entry points against their plain versions.
+field for field), its resident share and the shared-memory layout the
+plan mirrors from the kernels' header, the tile packer against
+`unit_blocks`, the streamed products' summation order emulated on the
+CPU against the plain recurrence, one run at H=1024 against the JAX
+package, and, on a card, the streamed entry points against their plain
+versions.
 
 JAX is imported inside the test that compares with it, so the CUDA cases
 also run where JAX is not installed:
     python -m pytest tests/test_torch_streamed.py -m cuda
 """
+
+import os
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -19,7 +26,8 @@ from vae_teb_tpu_torch.kernels import (wavefront, wavefront_bwd,
                                        wavefront_fwd_plain,
                                        wavefront_recurrence)
 from vae_teb_tpu_torch.kernels.wavefront import (_L2_BUDGET, LaunchPlan,
-                                                 _launch_plan, _stream_layout,
+                                                 _grid_layout, _launch_plan,
+                                                 _step_bytes, _stream_layout,
                                                  _stream_tiles, depth_groups,
                                                  unit_blocks)
 from vae_teb_tpu_torch.models.blocks import LSTMStream, run_lstm_streams
@@ -42,7 +50,8 @@ def _h100(N, CS, fwd, bwd):
 
 # (depths, H, dtype, depth groups, the plan of each group at B=32 by default
 # residency, and with the H100's) as the planner gave them before the
-# streamed mode existed: LaunchPlan's fields but the new chunks
+# streamed mode existed: LaunchPlan's fields but the streamed mode's chunks
+# and resident shares
 BEFORE = [
     ((4, 4), 8, torch.float32, 1, (2, 16, 3856, 4560, 'cluster', 0, 0, 0, 0, 0, 0), (2, 16, 3856, 4560, 'cluster', 0, 0, 0, 0, 0, 0)),
     ((4, 4), 8, torch.bfloat16, 1, (2, 16, 2576, 3312, 'cluster', 0, 0, 0, 0, 0, 0), (2, 16, 2576, 3312, 'cluster', 0, 0, 0, 0, 0, 0)),
@@ -79,10 +88,36 @@ def test_resident_plans_are_kept(depths, h, dtype, n_groups, default, h100):
                                 grid_resident=res)
             assert tuple(plan)[:11] == want
             assert plan.fwd_chunk == plan.bwd_chunk == 0
+            assert plan.fwd_resident == plan.bwd_resident == 0
 
 
 def _up128(x):
     return -(-x // 128) * 128
+
+
+def _up1024(x):
+    return -(-x // 1024) * 1024
+
+
+def _stream_bytes(fwd, cols, item, cs, bufs, kc, rc, kr):
+    """A streamed CTA's shared memory at 32 rows, from the layout the
+    kernels' header documents: 1024 bytes of mbarriers; `bufs` slots of
+    the rows (cs parts, each the 1024-byte aligned share of 32 rows by rc
+    values); `bufs` weight tiles (4N x kc forward, kc x N reverse); kr
+    resident tiles; the depth slices' sums; two steps' inputs; the
+    forward's bias; the carried state."""
+    tile = (4 * cols if fwd else cols) * kc * item
+    off = 1024 + bufs * cs * _up1024(32 // cs * rc * item)
+    off += (bufs + kr) * tile
+    if fwd:
+        off = _up128(_up128(off) + max(1, 32 // cols) * 32 * (4 * cols + 8)
+                     * 4)
+        off = _up128(off + 2 * 32 * 4 * cols * item)
+        off = _up128(off + 16 * cols)
+        return _up128(off + 2 * 32 * cols * 4)
+    off = _up128(_up128(off) + 4 * 32 * cols * 4)
+    off = _up128(off + 2 * 32 * 7 * cols * item)
+    return _up128(off + 3 * 32 * cols * 4)
 
 
 @pytest.mark.parametrize("h,dtype,cols,ctas", [
@@ -93,56 +128,150 @@ def test_streamed_plan_where_the_shared_memory_bit(h, dtype, cols, ctas):
     """One unit whose 2H x 4N weight slice fits no CTA at any N (fp32 H
     over 520, bf16 over 1056) plans the streamed mode: the fewest columns
     N whose ceil(H / N) CTAs are resident (bf16 H=1064 = 8 x 133: 67 CTAs
-    of 16 columns, the last owning 8); each way the largest chunk (up to
-    32 k-tiles of 8 fp32 / 16 bf16 depths) that leaves a ring of 2 slots
-    in 227 KB, and the most slots up to 8 at that chunk; the shared
-    memory of `_stream_layout`, which mirrors the kernels': 256 bytes of
-    mbarriers; slots of a weight tile (4N x chunk forward, chunk x N
-    reverse) and the chunk of 32 rows at chunk values and 16 bytes a row;
-    the depth slices' sums; two steps' inputs; the forward's bias; the
-    carried state."""
+    of 16 columns, the last owning 8), in clusters with at least 8 of the
+    32 rows a CTA part; each way the deepest weight chunk of 2 KB, 1 KB,
+    512, 256 or 128 bytes a row (the rows' tensor copies take 128-byte
+    pieces) whose rings of 2 slots fit; rows chunks of whole weight chunks
+    up to 2 KB a row; and a resident share of as many chunks as the
+    rest of the 227 KB holds, up to a step's most (2 stages forward, 8
+    reverse): the resident chunks, the rings and the tail fit 232,448
+    bytes, one more chunk would not, and the shared memory is what the
+    kernels' header lays out."""
     item = torch.empty((), dtype=dtype).element_size()
-    kw = 8 if item == 4 else 16
     plan = _launch_plan(32, 1, h, dtype, grid_resident=_h100)
     assert (plan.kind, plan.cols, plan.ctas) == ("stream", cols, ctas)
     assert plan.clusters * plan.cluster == ctas
     assert -(-h // cols) % plan.cluster == 0 and plan.flags == 32
-    kc, bkc = plan.fwd_chunk, plan.bwd_chunk
-    fwd = _up128(256 + plan.fwd_bufs * _up128(4 * cols * kc * item
-                                              + 32 * (kc * item + 16)))
-    fwd = _up128(fwd + max(1, 32 // cols) * 32 * (4 * cols + 8) * 4)
-    fwd = _up128(fwd + 2 * 32 * 4 * cols * item)
-    fwd = _up128(fwd + 16 * cols)
-    fwd = _up128(fwd + 2 * 32 * cols * 4)
-    bwd = _up128(256 + plan.bwd_bufs * _up128(cols * bkc * item
-                                              + 32 * (bkc * item + 16)))
-    bwd = _up128(bwd + 4 * 32 * cols * 4)
-    bwd = _up128(bwd + 2 * 32 * 7 * cols * item)
-    bwd = _up128(bwd + 3 * 32 * cols * 4)
-    assert (plan.fwd_smem, plan.bwd_smem) == (fwd, bwd)
-    for smem, bufs, fw, c in ((fwd, plan.fwd_bufs, True, kc),
-                              (bwd, plan.bwd_bufs, False, bkc)):
-        assert 2 <= bufs <= 8 and smem <= LIMIT
-        assert bufs == 8 or _stream_layout(fw, cols, h, item, 32, bufs + 1,
-                                           c) > LIMIT
-        assert c % kw == 0 and c // kw in (1, 2, 4, 8, 16, 32)
-        assert c == 32 * kw or _stream_layout(fw, cols, h, item, 32, 2,
-                                              2 * c) > LIMIT
+    assert 32 // plan.cluster >= 8
+    for fwd, smem, bufs, kc, rc, kr in (
+            (True, plan.fwd_smem, plan.fwd_bufs, plan.fwd_chunk,
+             plan.fwd_row_chunk, plan.fwd_resident),
+            (False, plan.bwd_smem, plan.bwd_bufs, plan.bwd_chunk,
+             plan.bwd_row_chunk, plan.bwd_resident)):
+        assert kc * item in (2048, 1024, 512, 256, 128) and bufs == 2
+        assert rc % kc == 0 and rc * item <= 2048
+        # a chunk twice as deep (its rows chunk too) leaves no rings of 2
+        assert kc * item == 2048 or _stream_bytes(
+            fwd, cols, item, plan.cluster, 2, 2 * kc, 2 * kc, 0) > LIMIT
+        most = (2 if fwd else 8) * -(-h // kc)
+        assert smem == _stream_bytes(fwd, cols, item, plan.cluster, bufs, kc,
+                                     rc, kr) <= LIMIT
+        assert 0 <= kr <= most
+        assert kr == most or _stream_bytes(fwd, cols, item, plan.cluster,
+                                           bufs, kc, rc, kr + 1) > LIMIT
     # the default residency (whole clusters on 132 SMs) plans the same N
     assert _launch_plan(32, 1, h, dtype).cols == cols
+
+
+# (fwd, N, storage bytes, rows, CS, slots of each ring, weight chunk, rows
+# chunk, resident chunks) of streamed plans like the main path's groups',
+# and (fwd, N, H, storage bytes, rows, buffers) of resident grid plans
+STREAM_LAYOUTS = [
+    (True, 8, 4, 32, 2, 2, 256, 512, 0), (False, 8, 4, 32, 2, 2, 512, 512, 2),
+    (True, 16, 4, 32, 2, 2, 128, 256, 1),
+    (False, 16, 4, 32, 2, 2, 256, 512, 1),
+    (True, 32, 4, 32, 2, 2, 128, 128, 0),
+    (False, 32, 4, 32, 2, 2, 256, 256, 0),
+    (True, 32, 2, 32, 4, 2, 256, 256, 0),
+    (False, 32, 2, 32, 4, 2, 512, 512, 1),
+    (True, 64, 4, 32, 4, 2, 32, 128, 0), (False, 64, 4, 32, 4, 2, 64, 64, 0),
+    (True, 16, 2, 32, 1, 2, 512, 512, 0),
+    (False, 16, 2, 32, 1, 2, 1024, 1024, 0)]
+# ... and other streamed layouts the kernels take: deeper rings, shallower
+# chunks, fewer rows than a pass
+OTHER_LAYOUTS = [
+    (True, 8, 4, 32, 2, 4, 64, 256, 12), (False, 16, 4, 32, 2, 8, 64, 256, 22),
+    (True, 16, 2, 5, 1, 2, 64, 128, 3), (False, 16, 2, 20, 4, 3, 64, 64, 0),
+    (True, 8, 4, 8, 8, 5, 32, 64, 5)]
+GRID_LAYOUTS = [(True, 8, 256, 4, 32, 2), (False, 8, 256, 4, 32, 4),
+                (True, 16, 512, 2, 32, 2), (False, 8, 104, 2, 5, 8)]
+
+
+def _header_layouts(stream_cases, grid_cases):
+    """The totals `stream_layout` and `grid_layout` of the kernels' header
+    give, compiled for the host with g++: the header's region from its
+    constants to the layouts, with __host__ and __device__ defined away."""
+    src = os.path.join(os.path.dirname(wavefront.__file__),
+                       "wavefront_grid.cuh")
+    text = open(src).read()
+    body = text[text.index("constexpr int WARPS"):
+                text.index("// The streamed tiles of unit u start")]
+    lines = [f"s {int(f)} {n} {i} {r} {c} {b} {k} {rc} {q}"
+             for f, n, i, r, c, b, k, rc, q in stream_cases]
+    lines += [f"g {int(f)} {n} {h} {i} {r} {b}"
+              for f, n, h, i, r, b in grid_cases]
+    prog = ("#include <stddef.h>\n#include <stdio.h>\n#define __host__\n"
+            "#define __device__\nstruct bf16 { unsigned short x; };\n"
+            "namespace {\n" + body + "}\n" + r"""
+template <typename T, bool F> size_t s(int n, int r, int c, int b, int k,
+                                       int rc, int q) {
+  return stream_layout<T, F>(n, r, c, b, k, rc, q).total;
+}
+template <typename T, bool F> size_t g(int n, int h, int r, int b) {
+  return grid_layout<T, F>(h, n, r, b).total;
+}
+int main() {
+  char kind;
+  int f, n, h, i, r, c, b, k, rc, q;
+  while (scanf(" %c", &kind) == 1) {
+    size_t t;
+    if (kind == 's') {
+      scanf("%d %d %d %d %d %d %d %d %d", &f, &n, &i, &r, &c, &b, &k, &rc,
+            &q);
+      t = i == 4 ? (f ? s<float, true>(n, r, c, b, k, rc, q)
+                      : s<float, false>(n, r, c, b, k, rc, q))
+                 : (f ? s<bf16, true>(n, r, c, b, k, rc, q)
+                      : s<bf16, false>(n, r, c, b, k, rc, q));
+    } else {
+      scanf("%d %d %d %d %d %d", &f, &n, &h, &i, &r, &b);
+      t = i == 4 ? (f ? g<float, true>(n, h, r, b) : g<float, false>(n, h, r, b))
+                 : (f ? g<bf16, true>(n, h, r, b) : g<bf16, false>(n, h, r, b));
+    }
+    printf("%zu\n", t);
+  }
+}
+""")
+    return prog, "\n".join(lines) + "\n"
+
+
+def test_stream_layout_mirrors_the_header(tmp_path):
+    """`_stream_layout` (and `_grid_layout`) give the bytes that the
+    kernels' own `stream_layout` (`grid_layout`) in wavefront_grid.cuh
+    lays out, which the kernels hold the launch's `smem` to: the header's
+    layout code compiled for the host at the streamed plans' shapes
+    (weight chunks of 32 and 64 depths, rows chunks of 1-8 of them, 1-8
+    row parts, rings of 2-8 slots, resident shares from 0 to 13 chunks,
+    fewer rows than a pass) and at
+    resident grid plans'."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the header's layout for the host")
+    prog, cases = _header_layouts(STREAM_LAYOUTS + OTHER_LAYOUTS,
+                                  GRID_LAYOUTS)
+    (tmp_path / "layout.cc").write_text(prog)
+    subprocess.run([gxx, "-std=c++17", "-O0", "-o", str(tmp_path / "layout"),
+                    str(tmp_path / "layout.cc")], check=True)
+    out = subprocess.run([str(tmp_path / "layout")], input=cases, text=True,
+                         capture_output=True, check=True).stdout.split()
+    want = [_stream_layout(f, n, i, r, c, b, k, rc, q)
+            for f, n, i, r, c, b, k, rc, q in STREAM_LAYOUTS + OTHER_LAYOUTS]
+    want += [_grid_layout(f, n, h, i, r, b) for f, n, h, i, r, b in GRID_LAYOUTS]
+    assert [int(x) for x in out] == want
+    assert all(w <= LIMIT for w in want[:len(STREAM_LAYOUTS)])
 
 
 def test_streamed_plan_where_the_residency_bit():
     """A unit whose CTAs at N <= 32 outnumber what the card holds plans the
     streamed mode's wider CTAs: H=4352 on a card of 132 CTAs (N=32: 136)
-    takes N=64, 68 CTAs (its forward in chunks of 4 k-tiles: two slots of
-    8 would not fit beside the buffers of 64 columns); bf16 H=1024 on a card
+    takes N=64, 68 CTAs (its fp32 forward in weight chunks of 32 depths:
+    rings of deeper tiles would not fit beside the buffers of 64 columns);
+    bf16 H=1024 on a card
     holding 100 CTAs, whose resident plan needs 128 of N=8 (N=16's slice
     is over 227 KB), takes 64 streamed CTAs of N=16. A card that holds too
     few even at N=64 raises, naming both modes' attempts."""
     held = lambda N, CS, f, b: 132 // CS * CS
     for dtype, chunks in ((torch.float32, (32, 64)),
-                          (torch.bfloat16, (64, 256))):
+                          (torch.bfloat16, (128, 256))):
         plan = _launch_plan(32, 1, 4352, dtype, grid_resident=held)
         assert (plan.kind, plan.cols, plan.ctas) == ("stream", 64, 68)
         assert (plan.fwd_chunk, plan.bwd_chunk) == chunks
@@ -168,9 +297,9 @@ def test_streamed_plan_where_the_residency_bit():
     (1536, torch.float32, "units")])
 def test_depth_groups_streamed_within_the_l2_budget(h, dtype, groups):
     """Where no unit fits a resident plan, the groups are streamed and
-    hold the most layers whose weights a step, (units + feed blocks) x H x
-    4H values, stay within `_L2_BUDGET`, by default residency and the
-    H100's alike."""
+    hold the most layers whose weights a step streams, (units + feed
+    blocks) x H x 4H values but the chunks the CTAs keep resident, stay
+    within `_L2_BUDGET`, by default residency and the H100's alike."""
     item = torch.empty((), dtype=dtype).element_size()
     want = (tuple(((0, l, l + 1), (1, l, l + 1)) for l in range(4))
             if groups == "layers" else
@@ -181,14 +310,25 @@ def test_depth_groups_streamed_within_the_l2_budget(h, dtype, groups):
         for g in got:
             units = sum(l1 - l0 for _, l0, l1 in g)
             feeds = units - len(g)
-            assert units == 1 or (units + feeds) * h * 4 * h * item \
-                <= _L2_BUDGET
-            assert _launch_plan(32, units, h, dtype,
-                                grid_resident=res).kind == "stream"
-    # a lone stream of four layers: two layers with their feed block read
-    # 50.3 MB a step, so one layer a group
+            plan = _launch_plan(32, units, h, dtype, grid_resident=res)
+            assert plan.kind == "stream"
+            streamed = _step_bytes(plan, units, feeds, h, item)
+            assert units == 1 or streamed <= _L2_BUDGET
+            assert streamed <= (units + feeds) * h * 4 * h * item
+    # a lone stream of four layers: two layers with their feed block hold
+    # 50.3 MB of weights; their CTAs (64 a unit) keep kr of a forward
+    # step's 1 or 2 stages of chunks resident (bkr of the reverse's 4 or 8)
+    # and stream the rest: two layers a group where that fits the budget
+    plan = _launch_plan(32, 2, 1024, torch.float32)
+    kr, bkr = plan.fwd_resident, plan.bwd_resident
+    nf, nb = 1024 // plan.fwd_chunk, 1024 // plan.bwd_chunk
+    streamed = max(64 * (nf - kr + 2 * nf - kr) * 64 * plan.fwd_chunk * 4,
+                   64 * (4 * nb - bkr + 8 * nb - bkr) * 16 * plan.bwd_chunk
+                   * 4)
+    assert _step_bytes(plan, 2, 1, 1024, 4) == streamed
+    per = 2 if streamed <= _L2_BUDGET else 1
     assert depth_groups((4,), 1024, torch.float32) == tuple(
-        ((0, l, l + 1),) for l in range(4))
+        ((0, l, l + per),) for l in range(0, 4, per))
 
 
 # ---------------------------------------------------------------------------
@@ -299,15 +439,18 @@ def _tf32_trunc(x):
     return (x.view(torch.int32) & -0x2000).view(torch.float32)
 
 
-def _streamed_product(x, w, H, kw, kc, ks, sets, tf32):
+def _streamed_product(x, w, H, kw, kc, ks, sets, tf32, kr=0):
     """x (R, stages * H) @ w (stages * H, C) summed as a streamed CTA's
     warps sum it: each stage's depth in chunks of kc, each chunk in
-    k-tiles of kw (zero past H); k-tile i of a chunk to depth slice i % ks
-    and accumulator set (i // ks) % sets, restarting at every chunk; per
-    k-tile one tensor-core step, taken as the exact sum rounded to fp32
-    once and added to its accumulator; fp32 operands split into tf32 big
-    + small, three accumulators (big*big, small*big, big*small) summed as
-    acc0 + (acc1 + acc2); the sets added in order, then the slices."""
+    k-tiles of kw (zero past H); the chunks in the order a step takes
+    them, its streamed chunks and then its last kr, resident ones (the
+    order of the stages' chunks whatever kr is); k-tile i of a chunk to
+    depth slice i % ks and accumulator set (i // ks) % sets, restarting at
+    every chunk; per k-tile one tensor-core step, taken as the exact sum
+    rounded to fp32 once and added to its accumulator; fp32 operands split
+    into tf32 big + small, three accumulators (big*big, small*big,
+    big*small) summed as acc0 + (acc1 + acc2); the sets added in order,
+    then the slices."""
     R, D = x.shape
     S = D // H
     kts = -(-H // kw)
@@ -324,9 +467,14 @@ def _streamed_product(x, w, H, kw, kc, ks, sets, tf32):
     else:
         parts = [tiles(xs, ws)]
     kpc = kc // kw
+    nc = -(-H // kc)
+    n = S * nc
+    streamed = max(0, n - kr)
+    order = list(range(streamed)) + list(range(streamed, n))
     acc = torch.zeros(ks, sets, len(parts), R, w.shape[1])
-    for s in range(S):
-        for j in range(kts):
+    for chunk in order:
+        s, c = divmod(chunk, nc)
+        for j in range(c * kpc, min(kts, (c + 1) * kpc)):
             i = j % kpc
             for a, part in enumerate(parts):
                 acc[i % ks, (i // ks) % sets, a] += part[s, j]
@@ -341,10 +489,11 @@ def _streamed_product(x, w, H, kw, kc, ks, sets, tf32):
     return dot
 
 
-def _streamed_products(W, lvec, B, N, kc, tf32):
+def _streamed_products(W, lvec, B, N, kc, tf32, kr=0):
     """The forward's and reverse's step products as the streamed kernels
-    form them for N columns a CTA and chunks of kc, on min(B, 32) rows a
-    pass, as `product` hooks of the plain recurrences."""
+    form them for N columns a CTA, chunks of kc and kr resident chunks a
+    CTA, on min(B, 32) rows a pass, as `product` hooks of the plain
+    recurrences."""
     U = lvec.numel()
     H = W.shape[0] // U
     wf, wb = (x.float() for x in unit_blocks(W, lvec))
@@ -362,7 +511,7 @@ def _streamed_products(W, lvec, B, N, kc, tf32):
         for u in range(U):
             x = torch.cat([hu[:, u], below[:, u]], 1)
             out[:, :, u] = _streamed_product(x, wf[u], H, kw, kc, ks_f,
-                                             sets_f, tf32).view(B, 4, H)
+                                             sets_f, tf32, kr).view(B, 4, H)
         return out.view(B, 4 * U * H)
 
     def bwd(dg, _):
@@ -373,7 +522,7 @@ def _streamed_products(W, lvec, B, N, kc, tf32):
             x = torch.cat([d[:, :, u].reshape(B, -1),
                            above[:, :, u].reshape(B, -1)], 1)
             out[:, u] = _streamed_product(x, wb[u].t(), H, kw, kc, ks_b,
-                                          sets_b, tf32)
+                                          sets_b, tf32, kr)
         return out.view(B, U * H)
     return fwd, bwd
 
@@ -412,28 +561,37 @@ def _bwd_inputs(seed, args, s):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("depths,h,b,N,kt", [((2,), 96, 3, 8, 4),
-                                             ((1, 2), 72, 20, 32, 2)])
-def test_streamed_products_hold_the_bars(dtype, depths, h, b, N, kt):
+@pytest.mark.parametrize("depths,h,b,N,kc,kr", [((2,), 96, 3, 8, 256, 0),
+                                                ((1, 2), 72, 20, 32, 32, 3),
+                                                ((1, 2), 72, 20, 32, 64, 16)])
+def test_streamed_products_hold_the_bars(dtype, depths, h, b, N, kc, kr):
     """The streamed kernels' tensor-core arithmetic in their k-chunked
     order (3xTF32 for fp32 storage, bf16 operands with fp32 sums for bf16;
-    chunks of kt k-tiles, short last chunks but at fp32 H=96),
-    run through the plain recurrences, against the plain recurrences at
-    the card's bars: forward max-abs 1e-5 (fp32) / 1.6e-2 (bf16; the
-    stored gates per element to that times max(1, |g|)), reverse 1e-5 /
-    3e-2 of max|plain|. The emulation itself gives x @ w exactly on
-    values whose sums are exact."""
+    chunks of 256, 64 or 32 depths, short last chunks; a resident share
+    of none, 3 chunks and all of them), run through the plain recurrences,
+    against the plain recurrences at the card's bars: forward max-abs 1e-5
+    (fp32) / 1.6e-2 (bf16; the stored gates per element to that times
+    max(1, |g|)), reverse 1e-5 / 3e-2 of max|plain|. The resident share
+    does not move the order: the same products without it are the same
+    bits. The emulation itself gives x @ w exactly on values whose sums
+    are exact."""
     fp32 = dtype == torch.float32
-    kc = kt * (8 if fp32 else 16)
+    if not fp32 and kc == 32:
+        kc = 64          # bf16 chunks are at least 128 bytes deep
     s = 20
     args = _recurrence_inputs(31, b, s, h, depths, dtype)
-    fwd_p, bwd_p = _streamed_products(args[0], args[5], b, N, kc, fp32)
+    fwd_p, bwd_p = _streamed_products(args[0], args[5], b, N, kc, fp32, kr)
+    fwd_0, bwd_0 = _streamed_products(args[0], args[5], b, N, kc, fp32)
     want = wavefront_fwd_plain(*args, s, with_residuals=True)
     got = wavefront_fwd_plain(*args, s, with_residuals=True, product=fwd_p)
     tol = 1e-5 if fp32 else 1.6e-2
     for i, (g, w) in enumerate(zip(got, want)):
         scale = w.float().abs().clamp_min(1.0) if i == 3 else 1.0
         assert ((g.float() - w.float()).abs() / scale).max().item() <= tol
+    if kr:
+        same = wavefront_fwd_plain(*args, s, with_residuals=True,
+                                   product=fwd_0)
+        assert all(torch.equal(g, w) for g, w in zip(got, same))
     bargs = _bwd_inputs(32, args, s)
     want = wavefront_bwd_plain(*bargs, s)
     got = wavefront_bwd_plain(*bargs, s, product=bwd_p)
@@ -441,11 +599,14 @@ def test_streamed_products_hold_the_bars(dtype, depths, h, b, N, kt):
     for g, w in zip(got, want):
         assert ((g.float() - w.float()).abs().max().item()
                 <= btol * w.float().abs().max().item())
+    if kr:
+        same = wavefront_bwd_plain(*bargs, s, product=bwd_0)
+        assert all(torch.equal(g, w) for g, w in zip(got, same))
     r = np.random.default_rng(33)
     x = torch.as_tensor(r.integers(-8, 8, (5, 2 * h)).astype(np.float32))
     w = torch.as_tensor(r.integers(-8, 8, (2 * h, 12)).astype(np.float32))
     assert torch.equal(_streamed_product(x, w, h, 8 if fp32 else 16, kc, 2,
-                                         2, fp32), x @ w)
+                                         2, fp32, kr), x @ w)
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,11 @@ CTAs resident (a unit's 2H x 4N slice over 227 KB at every N: fp32 H over
 residency), the grid kernels run in their streamed mode (`_stream_plan`,
 entry points `wavefront_grid_{fwd,fwd_res,bwd}_stream_{f32,bf16}`): the
 wrapper packs every CTA's slice into tiles in mma-fragment order, one
-gather a call (`_stream_tiles`), and each step streams them from L2
-through a ring of shared-memory slots.
+gather a call (`_stream_tiles`); each CTA keeps as many of its chunks
+resident in shared memory as the 227 KB hold beside its rings, and each
+step streams the others from L2 through a ring of shared-memory slots,
+ahead of the step's hand-off, and its rows through a second ring, one
+tensor-map copy a chunk.
 
 The kernels refuse a hidden size that is not a multiple of 8, and a stack
 whose grid CTAs the card cannot hold at once even at N = 64. The model
@@ -43,8 +46,8 @@ never hands them either: it packs each unit zero-padded to a multiple of 8
 (`models.blocks.padded_width`), and runs a stack too wide for one launch
 as depth groups, runs of consecutive layers each launched alone
 (`depth_groups`, `wavefront_groups`); a streamed group holds no more
-layers than keep a step's weights within `_L2_BUDGET`. A unit that fits
-no launch at all (more than 64 x 132 state columns) raises.
+layers than keep a step's streamed weights within `_L2_BUDGET`. A unit
+that fits no launch at all (more than 64 x 132 state columns) raises.
 
 Inside a CUDA-graph capture a launch is recorded, not run, and reads no
 host value that a replay would freeze: the shape caches `_held`,
@@ -92,10 +95,11 @@ _GRID_BUFS = (2, 8)          # most stage buffers: forward, reverse
 _FLAG_STRIDE = 32            # int32 words from a unit's step flag to the next
 _WARPS = 8                   # consumer warps of a grid CTA
 _STREAM_COLS = (8, 16, 32, 64)   # state columns a streamed CTA may own
-_STREAM_KTILES = (32, 16, 8, 4, 2, 1)   # k-tiles a chunk of the streamed mode
-_STREAM_BUFS = 8                 # most ring slots of a streamed CTA
-# The most weight bytes a step of a streamed depth group may read, so that
-# they can stay in the H100's 50 MB L2 from one step to the next. On an
+_STREAM_ROW_BYTES = 2048    # most bytes a row of a weight or rows chunk holds
+_STREAM_BUFS = 2            # slots of each of a streamed CTA's two rings
+# The most weight bytes a step of a streamed depth group may stream (its
+# resident chunks not counted), so that they can stay in the H100's 50 MB
+# L2 from one step to the next. With nothing resident and one ring, on an
 # H100 (700 W; chip_smoke.py phase 15 (d), B=32, K=303, fp32) a group of
 # one layer of both encoder streams at H=1024, 33.5 MB a step, runs its
 # forward in 5.39 ms and its reverse in 8.02 ms; a group of two layers of
@@ -115,11 +119,15 @@ class LaunchPlan(NamedTuple):
     cols: int = 0    # grid: N, state columns of one unit a CTA owns
     ctas: int = 0    # grid: U * H / N CTAs in the cooperative launch
     cluster: int = 0   # grid: CTAs a thread-block cluster (of one unit)
-    fwd_bufs: int = 0  # grid: stage buffers of a forward CTA's ring
-    bwd_bufs: int = 0  # ... of a reverse CTA's
+    fwd_bufs: int = 0  # grid: stage buffers of a forward CTA's ring (stream:
+    bwd_bufs: int = 0  # slots of each of its rings); ... of a reverse CTA's
     flags: int = 0     # grid: int32 words of the step flags, U * 32
     fwd_chunk: int = 0   # stream: depths of a forward chunk (a tile, a slot)
     bwd_chunk: int = 0   # ... of a reverse chunk
+    fwd_resident: int = 0   # stream: chunks of a forward CTA's step that
+    bwd_resident: int = 0   # stay in shared memory; ... of a reverse CTA's
+    fwd_row_chunk: int = 0  # stream: depths of a forward rows chunk (a
+    bwd_row_chunk: int = 0  # rows slot, whole weight chunks); ... reverse
 
 
 def _smem(M: int, H: int, item: int) -> Tuple[int, int]:
@@ -234,21 +242,58 @@ def _grid_plan(B: int, U: int, H: int, item: int,
                      f"{'; '.join(tried)})")
 
 
-def _stream_layout(fwd: bool, N: int, H: int, item: int, rows: int,
-                   bufs: int, kc: int) -> int:
+def _up1024(x: int) -> int:
+    return -(-x // 1024) * 1024
+
+
+def _stream_layout(fwd: bool, N: int, item: int, rows: int, CS: int,
+                   bufs: int, kc: int, rc: int, kr: int) -> int:
     """Bytes of shared memory of a forward or reverse CTA of the streamed
-    mode, as wavefront_grid.cuh::stream_layout lays it out (each region
-    128-byte aligned): 256 bytes of mbarriers; a ring of `bufs` slots, each
-    a chunk's weight tile (4N x kc forward, kc x N reverse, storage values)
-    and the chunk of the pass's rows (rounded up to 8 forward, 16 reverse)
-    at kc values and 16 bytes a row; then as `_grid_layout`: the depth
-    slices' sums (8 / m-tiles slices, one where the forward's 4N / 16
-    m-tiles are 8 or more), two steps' inputs, the forward's bias, the
-    carried state. Nothing here grows with H."""
+    mode, as wavefront_grid.cuh::stream_layout lays it out: 1024 bytes of
+    mbarriers; the rows' ring of `bufs` slots, each CS parts (1024-byte
+    aligned) of the pass's rows (rounded up to 8 forward, 16 reverse) / CS
+    by rc storage values, as the 128-byte swizzled tensor copies land them;
+    the weight ring of `bufs` slots, each a chunk's tile (4N x kc
+    forward, kc x N reverse); `kr` resident tiles; then as `_grid_layout`
+    (each region 128-byte aligned): the depth slices' sums (8 / m-tiles
+    slices, one where the forward's 4N / 16 m-tiles are 8 or more), two
+    steps' inputs, the forward's bias, the carried state. Nothing here
+    grows with H."""
     padded = -(-rows // 8) * 8 if fwd else -(-rows // 16) * 16
-    slot = _up128((4 * N if fwd else N) * kc * item
-                  + padded * (kc * item + 16))
-    return _layout_tail(fwd, N, item, rows, 256 + bufs * slot)
+    rank = _up1024(rc * item * (padded // CS))
+    tile = (4 * N if fwd else N) * kc * item
+    return _layout_tail(fwd, N, item, rows, 1024 + bufs * (CS * rank + tile)
+                        + kr * tile)
+
+
+def _stream_ring(fwd: bool, N: int, H: int, item: int, rows: int, CS: int
+                 ) -> Optional[Tuple[int, int, int]]:
+    """(weight chunk depths, rows chunk depths, resident chunks) of a
+    forward or reverse CTA of the streamed mode: the deepest weight chunk
+    of `_STREAM_ROW_BYTES`, 1/2, ... 1/16 of it a row (at least the tensor
+    copies' 128-byte pieces) whose rings of `_STREAM_BUFS` slots fit 227
+    KB; rows chunks of as many whole weight chunks as `_STREAM_ROW_BYTES`
+    a row hold (fewer where H is shorter, half as many where that does not
+    fit); then as many resident chunks as the rest of 227 KB holds, up to
+    a step's most (2 stages forward, 8 reverse, of ceil(H / kc) chunks).
+    Deeper chunks, not deeper rings or more resident chunks, are what
+    shortened a step (`PERF.md` section 6). None where no ring
+    fits."""
+    fits = lambda kc, rc: _stream_layout(
+        fwd, N, item, rows, CS, _STREAM_BUFS, kc, rc, 0) <= _SMEM_LIMIT
+    for kc in (_STREAM_ROW_BYTES // item >> k for k in range(5)
+               if _STREAM_ROW_BYTES >> k >= 128):
+        per = max(1, min(_STREAM_ROW_BYTES // item // kc, -(-H // kc)))
+        while per > 1 and not fits(kc, kc * per):
+            per //= 2
+        if not fits(kc, kc * per):
+            continue
+        tile = (4 * N if fwd else N) * kc * item
+        free = _SMEM_LIMIT - _stream_layout(fwd, N, item, rows, CS,
+                                            _STREAM_BUFS, kc, kc * per, 0)
+        return kc, kc * per, min((2 if fwd else 8) * -(-H // kc),
+                                 free // tile)
+    return None
 
 
 def _stream_plan(B: int, U: int, H: int, item: int,
@@ -257,51 +302,45 @@ def _stream_plan(B: int, U: int, H: int, item: int,
     """The streamed mode's plan, for a shape no resident grid plan takes
     (`why` says why). Rows a pass min(B, 32). Columns N (8, 16, 32, 64;
     ceil(H / N) CTAs a unit, the last owning H mod N columns where N does
-    not divide H), the fewest first; for each and each direction, the
-    largest chunk (32, 16, ..., 1 k-tiles of the mma's 8 (tf32) or 16
-    (bf16) depths) with which a ring of at least 2 slots fits 227 KB, and
-    the most slots up to 8; then clusters of CS CTAs of one unit (8, 4, 2,
-    1 dividing ceil(H / N)), the largest first; the first (N, CS) with
-    which all its CTAs are resident at once wins (`resident` as
-    `_grid_plan` takes it, asked of the streamed kernels).
+    not divide H), the fewest first; then clusters of CS CTAs of one unit
+    (8, 4, 2, 1 dividing ceil(H / N)), the largest first, so that a step's
+    rows cross from L2 once a cluster, but each CTA's part of the pass's
+    rows at least 8 (ldmatrix reads 8 rows of one part, whose swizzles
+    then differ); for each direction the chunks and the resident share
+    (`_stream_ring`); the first (N, CS) with which all its CTAs are
+    resident at once wins (`resident` as `_grid_plan` takes it, asked of
+    the streamed kernels).
 
-    Every chunk costs a round of small bulk copies (a row segment of each
-    of the pass's rows) whatever its depth, so the fewest chunks a step
-    win, even over a deeper ring (chip_smoke.py phase 15 (d) times the
-    plan against smaller chunks and clusters of 1). Raises when nothing
-    fits."""
+    The resident share is what the shared memory holds: a CTA keeps the
+    last min(kr, chunks) chunks of its step for all K steps and streams
+    the others, each step, from L2 (chip_smoke.py phase 15 (d) times the
+    plan against a share of 0 and against clusters of 2). Raises when
+    nothing fits."""
     rows = min(B, _GRID_ROWS)
-    kw = 8 if item == 4 else 16
     tried = []
-
-    def ring(fwd, N):   # (chunk, slots): the largest chunk, 2+ slots
-        for kt in _STREAM_KTILES:
-            n = max((n for n in range(2, _STREAM_BUFS + 1)
-                     if _stream_layout(fwd, N, H, item, rows, n, kt * kw)
-                     <= _SMEM_LIMIT), default=0)
-            if n:
-                return kt * kw, n
-        return None
-
     for N in _STREAM_COLS:
         per_unit = -(-H // N)     # the last CTA of a unit may own fewer
-        rings = ring(True, N), ring(False, N)
-        if None in rings:
-            tried.append(f"streamed N={N}: no ring of 2 slots in "
-                         f"{_SMEM_LIMIT} bytes")
-            continue
-        (fkc, fbufs), (bkc, bbufs) = rings
-        fwd = _stream_layout(True, N, H, item, rows, fbufs, fkc)
-        bwd = _stream_layout(False, N, H, item, rows, bbufs, bkc)
         ctas = U * per_unit
         for CS in _GRID_CLUSTERS:
-            if per_unit % CS:
+            if per_unit % CS or -(-rows // 8) * 8 < 8 * CS:
                 continue
+            rings = (_stream_ring(True, N, H, item, rows, CS),
+                     _stream_ring(False, N, H, item, rows, CS))
+            if None in rings:
+                tried.append(f"streamed N={N}: no rings of {_STREAM_BUFS} "
+                             f"slots in {_SMEM_LIMIT} bytes")
+                break
+            (fkc, frc, fkr), (bkc, brc, bkr) = rings
+            fwd = _stream_layout(True, N, item, rows, CS, _STREAM_BUFS, fkc,
+                                 frc, fkr)
+            bwd = _stream_layout(False, N, item, rows, CS, _STREAM_BUFS, bkc,
+                                 brc, bkr)
             held = resident(N, CS, fwd, bwd) if resident else _SMS // CS * CS
             if ctas <= held:
                 return LaunchPlan(rows, ctas // CS, fwd, bwd, "stream", N,
-                                  ctas, CS, fbufs, bbufs, U * _FLAG_STRIDE,
-                                  fkc, bkc)
+                                  ctas, CS, _STREAM_BUFS, _STREAM_BUFS,
+                                  U * _FLAG_STRIDE, fkc, bkc, fkr, bkr, frc,
+                                  brc)
             tried.append(f"streamed N={N} in clusters of {CS}: {ctas} CTAs, "
                          f"the card holds {held}")
     raise ValueError(f"{why[:-1]}; the streamed grid kernels: "
@@ -422,10 +461,24 @@ def _card_grid_resident(device: torch.device, dtype: torch.dtype,
 Group = Tuple[Tuple[int, int, int], ...]
 
 
-def _step_bytes(units: int, feeds: int, H: int, item: int) -> int:
-    """Weight bytes a step of a streamed launch reads: each unit's recurrent
-    block and each feed block, H x 4H values each."""
-    return (units + feeds) * H * 4 * H * item
+def _step_bytes(plan: LaunchPlan, units: int, feeds: int, H: int,
+                item: int) -> int:
+    """Weight bytes a step of a streamed launch reads from L2, the larger
+    of the forward's and the reverse's: each CTA's chunks (the forward's
+    1 or, with a feed block, 2 stages of ceil(H / kc); the reverse's 4 or,
+    feeding a unit above, 8) but its resident ones, a tile each. `feeds`
+    units have a feed block in and as many one out."""
+    per_unit = -(-H // plan.cols)
+    most = 0
+    for fwd in (True, False):
+        kc = plan.fwd_chunk if fwd else plan.bwd_chunk
+        kr = plan.fwd_resident if fwd else plan.bwd_resident
+        lo = (1 if fwd else 4) * -(-H // kc)
+        tile = (4 if fwd else 1) * plan.cols * kc * item
+        chunks = ((units - feeds) * max(0, lo - kr)
+                  + feeds * max(0, 2 * lo - kr))
+        most = max(most, per_unit * chunks * tile)
+    return most
 
 
 def depth_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
@@ -450,11 +503,11 @@ def depth_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
 
     Where not even one unit fits a resident plan, the groups are streamed
     (`_stream_plan`, with `stream_resident`, by default `grid_resident`):
-    a run fits when a streamed plan takes it and its step's weights (each
-    unit's recurrent block and each feed block inside the run, H x 4H
-    values each) are at most `_L2_BUDGET` bytes, so that they come from L2
-    and not from device memory; a single unit always fits if any plan
-    takes it. Raises when one unit fits no launch (more CTAs than the card
+    a run fits when a streamed plan takes it and the weights a step
+    streams (`_step_bytes`: each unit's recurrent block and each feed block
+    inside the run, but the chunks its CTAs keep resident) are at most
+    `_L2_BUDGET` bytes, so that they come from L2 and not from device
+    memory; a single unit always fits if any plan takes it. Raises when one unit fits no launch (more CTAs than the card
     holds at every N), naming the limit, the shape and the dtype."""
     depths = tuple(depths)
     item = torch.empty((), dtype=dtype).element_size()
@@ -475,8 +528,8 @@ def depth_groups(depths: Tuple[int, ...], H: int, dtype: torch.dtype,
         return refused(units) is None and tried[units][0].kind != "stream"
 
     def streamed(units, feeds):
-        return refused(units) is None and (
-            units == 1 or _step_bytes(units, feeds, H, item) <= _L2_BUDGET)
+        return refused(units) is None and (units == 1 or _step_bytes(
+            tried[units][0], units, feeds, H, item) <= _L2_BUDGET)
 
     def runs(streams, fits):   # greedy runs of layers over (stream, depth)
         units = lambda l0, l1: sum(max(0, min(d, l1) - l0) for _, d in streams)
@@ -780,7 +833,9 @@ def _launch(kind: str, entry: str, plan: LaunchPlan, ptrs, K: int, B: int,
         if plan.kind == "stream":
             head, dt = entry.rsplit("_", 1)
             entry = f"{head}_stream_{dt}"
-            ints += (plan.fwd_chunk if kind == "fwd" else plan.bwd_chunk,)
+            ints += ((plan.fwd_chunk, plan.fwd_row_chunk, plan.fwd_resident)
+                     if kind == "fwd" else
+                     (plan.bwd_chunk, plan.bwd_row_chunk, plan.bwd_resident))
         ints += (smem,)
     else:
         source = f"wavefront_{kind}.cu"
@@ -789,7 +844,10 @@ def _launch(kind: str, entry: str, plan: LaunchPlan, ptrs, K: int, B: int,
         err = _kernel(source, entry, len(ptrs), len(ints))(
             *ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
     if err:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: " + (
+            f"CUDA error {err}" if err < 10000 else
+            f"cuTensorMapEncodeTiled refused a tensor map (CUresult "
+            f"{err - 10000})"))
     return entry
 
 

@@ -25,17 +25,27 @@
 //
 // The streamed mode (template flag STREAM of both kernels, plan kind
 // "stream") is for the shapes whose weight slice does not fit a CTA's
-// shared memory: nothing that grows with H stays resident. The wrapper
-// packs each CTA's slice in global memory as tiles in mma-fragment order,
-// one per (unit, column block, stage, k-chunk of KC depths), each one
-// contiguous; a step is a pipelined k-loop over its stages' chunks, each
-// chunk one ring slot holding the weight tile (one bulk copy into this
-// CTA) and the chunk's KC columns of the stage's rows (multicast to the
-// cluster as above). Every consumer warp releases a slot on its own (the
-// `empty` mbarrier counts WARPS arrivals from each CTA of the cluster),
-// so warps run up to the ring's depth apart.
+// shared memory. The wrapper packs each CTA's slice in global memory as
+// tiles in mma-fragment order, one per (unit, column block, stage, k-chunk
+// of KC depths), each one contiguous; a step is a k-loop over its stages'
+// chunks. The last KR chunks of a CTA's step (the plan's resident share,
+// what the 227 KB hold beside the rings) stay in shared memory for all K
+// steps, loaded once by one bulk copy; the others stream every step
+// through a ring of weight slots that a weights warp fills as fast as the
+// consumers free them, across step boundaries, since no weight depends on
+// the step. The stage's rows (h or dgates) come through a second ring,
+// after the step flags, in rows chunks of RC columns (up to 2 KB a row,
+// whole weight chunks): each CTA of a cluster copies its 1/CS of a rows
+// chunk with one tensor-map copy (cp.async.bulk.tensor, 128-byte swizzle,
+// multicast to the cluster), a box of 128-byte pieces x rows x pieces, and
+// the consumers load their fragments from it by ldmatrix. The consumers
+// release a chunk's slots together, once they meet (one arrival from each
+// CTA of the cluster frees a rows slot, one from its own CTA a weight
+// slot), so that a step takes few hand-offs.
 
 #pragma once
+
+#include <cuda.h>
 
 #include "wavefront_common.cuh"
 
@@ -44,13 +54,22 @@ namespace {
 constexpr int WARPS = 8;                  // consumer warps
 constexpr int CONSUMERS = 32 * WARPS;     // their threads
 constexpr int THREADS = CONSUMERS + 32;   // and the producer warp
+// the streamed mode's: a weights warp and a rows warp
+constexpr int STREAM_THREADS = CONSUMERS + 64;
 constexpr int MAX_BUFS = 8;               // stage buffers of the ring
 constexpr int MAX_ROWS = 32;              // batch rows a pass
 constexpr int FLAG_STRIDE = 32;           // u32 from a unit's flag to the next
 constexpr int BAR_BYTES = 256;            // full[8], empty[8], in[2] mbarriers
+// the streamed mode's mbarriers (also those of the weight ring and of the
+// resident chunks), padded so that the rows' ring starts on the 1024
+// bytes a 128-byte swizzle repeats after
+constexpr int STREAM_BAR_BYTES = 1024;
 
 __host__ __device__ inline size_t up128(size_t x) {
   return (x + 127) / 128 * 128;
+}
+__host__ __device__ inline size_t up1024(size_t x) {
+  return (x + 1023) / 1024 * 1024;
 }
 
 // Where a grid CTA keeps what, as kernels/wavefront.py::_grid_layout mirrors
@@ -71,10 +90,14 @@ struct Layout {
   int ps;      // row stride of the slices' sums: 4N + 8 forward, N reverse,
                // so that a warp's cells read 32 banks
   size_t w, buf, part, in, bias, carry, total;  // byte offsets, size
-  // streamed mode: a ring slot is a weight tile (wt bytes) and the rows'
-  // chunk (rows x rsc storage values); kc depths a chunk, kpc k-tiles
-  int kc, kpc, rsc;
-  size_t slot, wt;
+  // streamed mode: kc depths a weight chunk (kpc k-tiles), rc depths a
+  // rows chunk (`pieces` of 128 bytes a row, rc / kc weight chunks); the
+  // rows' ring at `buf`, slots of `slot` bytes, each CS parts of `rank`
+  // bytes (one CTA's share of `share` rows: [pieces][share][128 bytes],
+  // 128-byte swizzled); the weight ring at `w`, slots of `wt` bytes (a
+  // chunk's tile); kr resident chunks' tiles at `res`
+  int kc, kpc, rc, pieces, share, kr;
+  size_t slot, wt, rank, res;
 };
 
 // The regions after the ring, from byte `off`, as kernels/wavefront.py::
@@ -113,41 +136,49 @@ __host__ __device__ inline Layout grid_layout(int H, int N, int MB, int nbuf) {
                         (FWD ? 16 : 8));
   L.buf = off;  // the ring: nbuf x rows x rs
   layout_tail<T, FWD>(L, off + (size_t)nbuf * L.rows * L.rs * item, MB, N);
-  L.kc = L.kpc = L.rsc = 0;
-  L.slot = L.wt = 0;
+  L.kc = L.kpc = L.rc = L.pieces = L.share = L.kr = 0;
+  L.slot = L.wt = L.rank = L.res = 0;
   return L;
 }
 
 // The streamed mode's layout, as kernels/wavefront.py::_stream_layout
-// mirrors it: 256 bytes of mbarriers; the ring of nbuf slots, each the
-// chunk's weight tile (forward 4N x kc, reverse kc x N storage values, in
-// fragment order) and the chunk of the pass's rows (rounded up to 8 / 16)
-// at a stride of kc values plus 16 bytes; then the depth slices' sums, two
-// steps' inputs, the forward's bias and the carried state as in
+// mirrors it: STREAM_BAR_BYTES of mbarriers; the rows' ring of nbuf slots,
+// each CS parts (1024-byte aligned) of the pass's rows (rounded up to 8 /
+// 16) / CS by rc values, as the tensor copies land them; the weight ring of
+// nbuf slots, each a chunk's tile (forward 4N x kc, reverse kc x N storage
+// values, in fragment order); kr resident tiles; then the depth slices'
+// sums, two steps' inputs, the forward's bias and the carried state as in
 // grid_layout. The forward's m-tiles (4N / 16) are spread over at most the
 // 8 warps: at N = 64 each warp takes two.
 template <typename T, bool FWD>
-__host__ __device__ inline Layout stream_layout(int H, int N, int MB, int nbuf,
-                                                int kc) {
+__host__ __device__ inline Layout stream_layout(int N, int MB, int CS,
+                                                int nbuf, int kc, int rc,
+                                                int kr) {
   Layout L;
   const int item = (int)sizeof(T);
   L.kw = item == 4 ? 8 : 16;
   L.kc = kc;
   L.kpc = kc / L.kw;
+  L.rc = rc;
+  L.pieces = rc * item / 128;
+  L.kr = kr;
   L.kts = 0;
   L.rs = 0;
-  L.rsc = kc + 16 / item;
   L.stages = FWD ? 2 : 8;
   L.rows = FWD ? (MB + 7) / 8 * 8 : (MB + 15) / 16 * 16;
+  L.share = L.rows / CS;
   L.mt = FWD ? N / 4 : L.rows / 16;
   L.nt = FWD ? L.rows / 8 : N / 8;
   L.ks = L.mt >= WARPS ? 1 : WARPS / L.mt;
   L.cols = FWD ? 4 * N : N;
   L.ps = FWD ? L.cols + 8 : L.cols;
+  L.rank = up1024((size_t)L.pieces * L.share * 128);
+  L.slot = CS * L.rank;
   L.wt = (size_t)L.cols * kc * item;
-  L.slot = up128(L.wt + (size_t)L.rows * L.rsc * item);
-  L.w = L.buf = BAR_BYTES;
-  layout_tail<T, FWD>(L, L.buf + (size_t)nbuf * L.slot, MB, N);
+  L.buf = STREAM_BAR_BYTES;
+  L.w = L.buf + (size_t)nbuf * L.slot;
+  L.res = L.w + (size_t)nbuf * L.wt;
+  layout_tail<T, FWD>(L, L.res + (size_t)kr * L.wt, MB, N);
   return L;
 }
 
@@ -169,6 +200,16 @@ __device__ __forceinline__ unsigned empty_bar(unsigned bars, int i) {
 }
 __device__ __forceinline__ unsigned in_bar(unsigned bars, int j) {
   return bars + 128 + 8 * j;
+}
+// the streamed mode's weight ring and resident chunks
+__device__ __forceinline__ unsigned wfull_bar(unsigned bars, int i) {
+  return bars + 256 + 8 * i;
+}
+__device__ __forceinline__ unsigned wempty_bar(unsigned bars, int i) {
+  return bars + 320 + 8 * i;
+}
+__device__ __forceinline__ unsigned res_bar(unsigned bars) {
+  return bars + 384;
 }
 
 __device__ __forceinline__ void mbar_init_n(unsigned bar, unsigned count) {
@@ -221,15 +262,24 @@ __device__ __forceinline__ void release_stage(unsigned bar, int cs, int warp,
   }
 }
 
-// A consumer warp of the streamed mode is done with a ring slot: one
-// arrival on that slot's `empty` mbarrier in each of the cluster's CTAs
-// (lane r to rank r), after every lane's reads of the slot
-__device__ __forceinline__ void release_slot(unsigned bar, int cs, int lane) {
-  __syncwarp();
-  if (cs == 1) {
-    if (lane == 0) mbar_arrive_local(bar);
-  } else if (lane < cs) {
-    mbar_arrive_remote(cluster_addr(bar, lane));
+// The streamed mode's consumers are done with a chunk: after they meet,
+// warp 0 frees its weight slot (`wbar`, 0 for a resident chunk: one
+// arrival in this CTA) and, at a rows chunk's end, its rows slot (`rbar`,
+// else 0: one arrival in each of the cluster's CTAs, lane r to rank r), so
+// that the rows warps refill it, and the multicasts overwrite it, only
+// once every CTA is done
+__device__ __forceinline__ void release_chunk(unsigned wbar, unsigned rbar,
+                                              int cs, int warp, int lane) {
+  consumers_sync();
+  if (warp == 0) {
+    if (wbar && lane == 0) mbar_arrive_local(wbar);
+    if (rbar) {
+      if (cs == 1) {
+        if (lane == 0) mbar_arrive_local(rbar);
+      } else if (lane < cs) {
+        mbar_arrive_remote(cluster_addr(rbar, lane));
+      }
+    }
   }
 }
 
@@ -259,6 +309,113 @@ __device__ __forceinline__ void bulk_copy_mc(unsigned dst, const void* src,
       ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar), "h"(mask)
       : "memory");
+}
+
+// One tensor-map copy global -> shared (a 5-D box, coordinates innermost
+// first) counted in bytes on an mbarrier: into this CTA, or multicast to
+// the same offset of every CTA in `mask`
+__device__ __forceinline__ void tensor_copy(unsigned dst, const CUtensorMap* map,
+                                            const int (&c)[5], unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c[0]), "r"(c[1]),
+      "r"(c[2]), "r"(c[3]), "r"(c[4])
+      : "memory");
+}
+__device__ __forceinline__ void tensor_copy_mc(unsigned dst,
+                                               const CUtensorMap* map,
+                                               const int (&c)[5], unsigned bar,
+                                               unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5, %6, %7, %8}], [%2], %3;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask),
+      "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4])
+      : "memory");
+}
+
+// The two tensor maps over one exchanged tensor (kernels' parameters, so
+// in the parameter space the copies read them from): `chunk` boxes a CTA's
+// share of rows of a whole chunk, dims (128-byte piece, row, piece of a
+// segment, segment, step) and box (128 / item, share, pieces, 1, 1), for a
+// chunk inside H; `piece` one 128-byte piece, dims (column of a segment,
+// row, segment, step), whose columns past H and rows past B read as zeros,
+// for the pieces of a chunk that H cuts short. A row holds `segs` segments
+// of H values (h: the U units; dgates: the 4U (gate, unit) pairs).
+struct RowMaps {
+  CUtensorMap chunk, piece;
+};
+
+// Rows chunk c's rows of segment `seg` at step `step`: this CTA's share
+// (rows r0 + rank * share on) of each 128-byte piece, one tensor copy for
+// a chunk inside H, else one a piece, landing at `dst` in [pieces][share]
+// [128 bytes] and in the same place of every CTA of the cluster; one
+// arrival on `bar` expecting the bytes that all the cluster's copies bring
+__device__ __forceinline__ void copy_rows(const RowMaps& maps, const Layout& L,
+                                          int H, int item, int c, int seg,
+                                          int step, int r0, unsigned rank,
+                                          int cs, unsigned dst,
+                                          unsigned bar) {
+  const unsigned short mask = (unsigned short)((1u << cs) - 1);
+  const int row = r0 + (int)rank * L.share, cols = 128 / item;
+  const bool whole = (c + 1) * L.rc <= H;
+  const int np = whole ? L.pieces : ((H - c * L.rc) * item + 127) / 128;
+  mbar_expect(bar, (unsigned)(cs * np * L.share * 128));
+  dst += rank * (unsigned)L.rank;
+  for (int p = 0; p < (whole ? 1 : np); ++p) {
+    const int cw[5] = {0, row, c * L.rc / cols, seg, step};
+    const int cp[5] = {c * L.rc + p * cols, row, seg, step, 0};
+    const CUtensorMap* map = whole ? &maps.chunk : &maps.piece;
+    const unsigned at = dst + p * L.share * 128;
+    if (cs > 1)
+      tensor_copy_mc(at, map, whole ? cw : cp, bar, mask);
+    else
+      tensor_copy(at, map, whole ? cw : cp, bar);
+  }
+}
+
+// A lane's row of a streamed mode's rows slot for ldmatrix (lane l gives
+// the address of row l % 8 of matrix l / 8): the row's byte offset in a
+// slot (its CTA part, its 128-byte line in the part), and its lines'
+// swizzle at piece 0 (128-byte swizzle: 16-byte unit u of a line lies at
+// u XOR the line's address bits 7-9; `ring` the rows ring's shared
+// address; the parts are 1024-byte aligned)
+struct SwzRow {
+  unsigned off, sw;
+};
+__device__ __forceinline__ SwzRow swz_row(const Layout& L, unsigned ring,
+                                          int r) {
+  return SwzRow{(unsigned)((r / L.share) * L.rank + (r % L.share) * 128),
+                ((ring >> 7) + (unsigned)(r % L.share)) & 7};
+}
+// The shared address of that row's 16-byte unit 2 (j % 4) + `half` of
+// k-tile j (32 bytes), in piece p0 + j / 4 of the slot at `slot`
+__device__ __forceinline__ unsigned swz_addr(const Layout& L, SwzRow row,
+                                             unsigned slot, int p0, int j,
+                                             unsigned half) {
+  const int p = p0 + (j >> 2);
+  const unsigned u =
+      (((unsigned)(j & 3) << 1) | half) ^ ((row.sw + (unsigned)(p * L.share)) & 7);
+  return slot + row.off + (unsigned)(p * L.share * 128) + (u << 4);
+}
+// ldmatrix: four (two) 8 x 8 matrices of 16-bit values, lane l giving the
+// row address of row l % 8 of matrix l / 8; lane (g, t) gets the 32-bit
+// word t of row g of each, which is the mma fragment register of that
+// matrix for tf32 (k = t, 4 a row) and bf16 (k = 2t, 2t + 1) alike
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned& r0,
+                                        unsigned& r1, unsigned& r2,
+                                        unsigned& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned addr, unsigned& r0,
+                                        unsigned& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
 }
 
 // The step flags: unit v's counter (v * FLAG_STRIDE) gains one from each of
@@ -295,15 +452,33 @@ __device__ __forceinline__ void wait_flag(const unsigned* flag,
 // fill of the ring before the bulk copies that overwrite it, and the
 // cluster's CTAs meet, so that no copy or remote arrival reaches a CTA
 // whose mbarriers are not yet initialised.
-// `releases` arrivals from each CTA of the cluster free a ring buffer: one
-// (the consumers meet first) or, in the streamed mode, one a warp.
+// One arrival from each CTA of the cluster (the consumers meet first)
+// frees a ring buffer.
 __device__ __forceinline__ void grid_init_barriers(unsigned bars, int nbuf,
-                                                   int cs, int releases = 1) {
+                                                   int cs) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < nbuf; ++i) {
       mbar_init_n(full_bar(bars, i), 1);
-      mbar_init_n(empty_bar(bars, i), cs * releases);
+      mbar_init_n(empty_bar(bars, i), cs);
     }
+    mbar_init_n(in_bar(bars, 0), 32);
+    mbar_init_n(in_bar(bars, 1), 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+}
+// The streamed mode's: the rows' ring (`empty`: one arrival from each CTA
+// of the cluster), the weight ring (one from this CTA), the resident
+// chunks and the inputs
+__device__ __forceinline__ void stream_init_barriers(unsigned bars, int nbuf,
+                                                     int cs) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nbuf; ++i) {
+      mbar_init_n(full_bar(bars, i), 1);
+      mbar_init_n(empty_bar(bars, i), cs);
+      mbar_init_n(wfull_bar(bars, i), 1);
+      mbar_init_n(wempty_bar(bars, i), 1);
+    }
+    mbar_init_n(res_bar(bars), 1);
     mbar_init_n(in_bar(bars, 0), 32);
     mbar_init_n(in_bar(bars, 1), 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -442,9 +617,10 @@ __device__ __forceinline__ float acc_sum(const float (&acc)[SETS][NT][3][4],
 // ---- launch ----
 
 // Launch `kernel` (one by-value parameter struct) as one cooperative grid
-// of `ctas` CTAs in clusters of `cs`, all resident at once or refused.
+// of `ctas` CTAs of `threads` in clusters of `cs`, all resident at once or
+// refused.
 int grid_launch(const void* kernel, void* params, int ctas, int cs, int smem,
-                void* stream) {
+                void* stream, int threads = THREADS) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -457,7 +633,7 @@ int grid_launch(const void* kernel, void* params, int ctas, int cs, int smem,
   attr[1].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
@@ -468,10 +644,12 @@ int grid_launch(const void* kernel, void* params, int ctas, int cs, int smem,
   return (int)cudaGetLastError();
 }
 
-// How many CTAs of `kernel` with `smem` bytes of dynamic shared memory the
-// card holds at once in clusters of `cs` (cudaOccupancyMaxActiveClusters
-// times cs; for cs = 1 blocks per SM times SMs), or minus the CUDA error.
-int grid_max_ctas(const void* kernel, int smem, int cs) {
+// How many CTAs of `kernel` (of `threads`) with `smem` bytes of dynamic
+// shared memory the card holds at once in clusters of `cs`
+// (cudaOccupancyMaxActiveClusters times cs; for cs = 1 blocks per SM
+// times SMs), or minus the CUDA error.
+int grid_max_ctas(const void* kernel, int smem, int cs,
+                  int threads = THREADS) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
@@ -483,7 +661,7 @@ int grid_max_ctas(const void* kernel, int smem, int cs) {
     attr.val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(cs);
-    cfg.blockDim = dim3(THREADS);
+    cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
@@ -492,7 +670,7 @@ int grid_max_ctas(const void* kernel, int smem, int cs) {
     return err == cudaSuccess ? n * cs : -(int)err;
   }
   int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                       smem);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -513,17 +691,93 @@ inline bool grid_args_ok(int H, int N, int CS, int MB, int nbuf, int smem,
 }
 
 // ... and the streamed mode's: N of 8, 16, 32 or 64, ceil(H / N) CTAs a
-// unit (the last may own fewer columns); chunks of 1, 2, 4, 8, 16 or 32
-// k-tiles (kw = 8 tf32, 16 bf16 depths each); a ring of at least 2 slots
+// unit (the last may own fewer columns); weight chunks of a multiple of
+// 128 bytes of depth, rows chunks of whole weight chunks up to 2 KB a row;
+// rings of 2-8 slots; any number of resident chunks that `smem` holds
 inline bool stream_args_ok(int H, int N, int CS, int MB, int nbuf, int kc,
-                           int kw, int smem, size_t total) {
+                           int rc, int kr, int item, int smem, size_t total) {
   return (N == 8 || N == 16 || N == 32 || N == 64) && H % 8 == 0 &&
          (CS == 1 || CS == 2 || CS == 4 || CS == 8) &&
          ((H + N - 1) / N) % CS == 0 && MB >= 1 && MB <= MAX_ROWS &&
-         nbuf >= 2 &&
-         nbuf <= MAX_BUFS &&
-         kc % kw == 0 && kc / kw <= 32 && ((kc / kw) & (kc / kw - 1)) == 0 &&
+         nbuf >= 2 && nbuf <= MAX_BUFS &&
+         kc * item % 128 == 0 && kc * item >= 128 && rc % kc == 0 &&
+         rc * item <= 2048 && kr >= 0 &&
          (size_t)smem == total;
+}
+
+// ---- tensor maps (host) ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, taken through the runtime (so the
+// library links nothing but the runtime), or null
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// Errors of the tensor maps come back as TMAP_ERROR + the encoder's CUresult
+constexpr int TMAP_ERROR = 10000;
+
+// A 5-D tensor map of storage type T over `base`: `dim` innermost first,
+// `stride` the byte strides of dims 1-4, `box` the box; 128-byte swizzle,
+// zeros out of bounds
+template <typename T>
+int encode_map(CUtensorMap* map, const void* base, const cuuint64_t (&dim)[5],
+               const cuuint64_t (&stride)[4], const cuuint32_t (&box)[5]) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return TMAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(
+      map,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      5, const_cast<void*>(base), dim, stride, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMAP_ERROR + (int)r;
+}
+
+// The RowMaps of a tensor at `base` of `steps` steps (at `step_bytes`) of
+// B rows (at `row_bytes`), each `segs` segments of H values, for a layout
+// L and clusters of CS (boxes of L.share rows)
+template <typename T>
+int row_maps(RowMaps* m, const void* base, int H, int segs, int B, int steps,
+             size_t row_bytes, size_t step_bytes, const Layout& L) {
+  const int item = (int)sizeof(T), cols = 128 / item;
+  const cuuint64_t seg = (cuuint64_t)H * item, whole = H * item / 128;
+  const cuuint64_t cdim[5] = {(cuuint64_t)cols, (cuuint64_t)B,
+                              whole ? whole : 1, (cuuint64_t)segs,
+                              (cuuint64_t)steps};
+  const cuuint64_t cstr[4] = {row_bytes, 128, seg, step_bytes};
+  const cuuint32_t cbox[5] = {(cuuint32_t)cols, (cuuint32_t)L.share,
+                              (cuuint32_t)L.pieces, 1, 1};
+  int err = encode_map<T>(&m->chunk, base, cdim, cstr, cbox);
+  if (err) return err;
+  const cuuint64_t pdim[5] = {(cuuint64_t)H, (cuuint64_t)B, (cuuint64_t)segs,
+                              (cuuint64_t)steps, 1};
+  const cuuint64_t pstr[4] = {row_bytes, seg, step_bytes,
+                              step_bytes * (cuuint64_t)steps};
+  const cuuint32_t pbox[5] = {(cuuint32_t)cols, (cuuint32_t)L.share, 1, 1, 1};
+  return encode_map<T>(&m->piece, base, pdim, pstr, pbox);
 }
 
 }  // namespace

@@ -46,11 +46,22 @@
 // (unit, column block, stage, chunk of KC depths) as one contiguous tile
 // of KC x N values in B-fragment order (a unit that feeds no unit above it
 // has no tile for stages 4-7), and each step's product is a k-loop over
-// the stages' chunks through a ring of slots, each slot a chunk's weight
-// tile and the chunk's KC columns of the stage's dgates rows. Only the
-// summation order differs from the resident mode (each warp's accumulator
-// sets restart their k-tile count at every chunk); the plain version
-// (kernels/wavefront_ref.py::wavefront_bwd_plain) is its oracle.
+// the stages' chunks. What bounds it on the card, as in the forward, is
+// the step's chain (the hand-off of two units' dgates, the product, the
+// cells), not the bytes from L2: each CTA's slice and 1/CS of the step's
+// dgates rows, four stages of them (8H values a row against the forward's
+// 2H). The design is the forward's: the last KR chunks of a CTA's step
+// stay resident in shared memory for all K steps; a weights warp streams
+// the others through a ring of their own across step boundaries, so that
+// they arrive while the step's cells run and its flags are awaited; a
+// rows warp brings the dgates in chunks of up to 2 KB a row with one
+// 128-byte swizzled tensor-map copy a CTA, multicast to the cluster, into
+// a second ring; the consumers free a chunk's slots once they meet, and
+// load the A fragments (rows 16 mtile + g, + 8, at k t, t + 4) by one
+// ldmatrix a k-tile. Only the summation order differs from the resident
+// mode (each warp's accumulator sets restart their k-tile count at every
+// weight chunk); the plain version (kernels/wavefront_ref.py::
+// wavefront_bwd_plain) is its oracle.
 //
 // Plain C interface: each entry point launches on the given stream and
 // returns the CUDA error of the launch (0 on success).
@@ -61,6 +72,7 @@ namespace {
 
 template <typename T>
 struct BwdParams {
+  RowMaps dmap;  // streamed mode: tensor maps of dgates_seq
   const T* wb;  // [U][8H][H]
   const T* gates_seq;
   const T* c_seq;
@@ -74,7 +86,9 @@ struct BwdParams {
   T* dc_fin;
   unsigned* flags;
   int K, B, U, H, S, N, CS, MB, NBUF;
-  int KC;  // streamed mode: depths a chunk
+  // streamed mode: depths a weight chunk and a rows chunk, resident
+  // chunks a CTA
+  int KC, RC, KR;
 };
 
 // x * y * (1 - y), evaluated left to right without contraction
@@ -93,10 +107,11 @@ __device__ __forceinline__ unsigned wb_bits(const BwdParams<T>& p, int u,
 
 // NT: n8 tiles of state columns, N / 8; STREAM: the streamed mode
 template <typename T, int NT, bool STREAM>
-__global__ void __launch_bounds__(THREADS, 1)
-    wavefront_grid_bwd_kernel(const BwdParams<T> p) {
+__global__ void __launch_bounds__(STREAM ? STREAM_THREADS : THREADS, 1)
+    wavefront_grid_bwd_kernel(const __grid_constant__ BwdParams<T> p) {
   constexpr bool TF32 = sizeof(T) == 4;
   constexpr int SETS = sets_for(NT);
+  constexpr int NTHREADS = STREAM ? STREAM_THREADS : THREADS;
   constexpr int SEGS = 7;  // input segments a row: 4 gates, c, c_prev, dY
   const int K = p.K, B = p.B, H = p.H, N = p.N, CS = p.CS, MB = p.MB;
   // CTAs a unit: the streamed mode's last one may own fewer than N columns
@@ -109,12 +124,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int layer = p.lvec[u];
   const bool feed_out = u + 1 < p.U && p.lvec[u + 1] > 0;
   const int nstage = feed_out ? 8 : 4;  // unit u's gates, then unit u+1's
-  const Layout L = STREAM ? stream_layout<T, false>(H, N, MB, NBUF, p.KC)
-                          : grid_layout<T, false>(H, N, MB, NBUF);
+  const Layout L =
+      STREAM ? stream_layout<T, false>(N, MB, CS, NBUF, p.KC, p.RC, p.KR)
+             : grid_layout<T, false>(H, N, MB, NBUF);
   const int KTT = L.stages * L.kts;
   const int E = (B + MB - 1) / MB * K;
-  // streamed mode: chunks a stage, and this CTA's first weight tile
+  // streamed mode: weight chunks a stage and a step, the step's streamed
+  // chunks (the first nstr; the other min(KR, nch) resident), rows chunks
+  // a stage and weight chunks a rows chunk, and this CTA's first weight
+  // tile
   const int nc = STREAM ? (H + p.KC - 1) / p.KC : 0;
+  const int nch = nstage * nc, nstr = max(0, nch - p.KR);
+  const int ncr = STREAM ? (H + p.RC - 1) / p.RC : 0;
+  const int per = STREAM ? p.RC / p.KC : 1;
   const size_t tile = L.wt / sizeof(T);
   const T* tiles =
       STREAM ? p.wb + (units_tiles(u, per_unit, nc,
@@ -137,10 +159,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* dc_c = dh_c + MB * N;
   float* dht_c = dc_c + MB * N;  // dh_tot, which an idle unit carries
 
-  grid_init_barriers(bars, NBUF, CS, STREAM ? WARPS : 1);
-  // the ring starts zeroed: a chunk shorter than KC leaves earlier rows'
-  // (finite) values past its end, which meet zero weights
-  for (int i = tid; i < (int)((L.part - L.buf) / 16); i += THREADS)
+  if (STREAM)
+    stream_init_barriers(bars, NBUF, CS);
+  else
+    grid_init_barriers(bars, NBUF, CS);
+  // the rows' ring starts zeroed: a chunk shorter than KC leaves earlier
+  // rows' (finite) values in its pieces past H, which meet zero weights
+  for (int i = tid; i < (int)(((STREAM ? L.w : L.part) - L.buf) / 16);
+       i += NTHREADS)
     reinterpret_cast<uint4*>(smem + L.buf)[i] = make_uint4(0, 0, 0, 0);
   // B fragments of the weight slice: [nt][KTT][lane][2], register r of lane
   // (g, t) holding W[d][n] at n = 8 nt + g, d = kw j + (t, or 2t and 2t+1
@@ -148,7 +174,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // zero past H and for the feed stages of a unit that feeds none. The
   // streamed mode's tiles hold the same fragments, [nt][kpc][lane][2] a
   // chunk.
-  for (int i = tid; !STREAM && i < L.nt * KTT * 64; i += THREADS) {
+  for (int i = tid; !STREAM && i < L.nt * KTT * 64; i += NTHREADS) {
     const int r = i & 1, ln = (i >> 1) & 31, f = i >> 6;
     const int kt = f % KTT, ntile = f / KTT, s = kt / L.kts;
     const int c = ntile * 8 + ln / 4;
@@ -169,8 +195,30 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const bool ring = NBUF < nstage;  // else stage s keeps buffer s
 
-  if (warp == WARPS) {
-    // ---- producer: the stages of every step, the inputs two steps ahead --
+  if (STREAM && warp == WARPS) {
+    // ---- streamed mode's weights: the resident chunks once, then the
+    // streamed chunks of every step in order, each as soon as the ring
+    // has a free slot ----
+    if (lane == 0) {
+      if (nstr < nch) {
+        mbar_expect(res_bar(bars), (unsigned)((nch - nstr) * L.wt));
+        bulk_copy(smem_addr(smem + L.res), tiles + (size_t)nstr * tile,
+                  (unsigned)((nch - nstr) * L.wt), res_bar(bars));
+      }
+      const unsigned wring = smem_addr(smem + L.w);
+      for (int n = 0, i = 0, slot = 0, use = 0; n < E * nstr; ++n) {
+        if (use > 0) mbar_wait(wempty_bar(bars, slot), (use - 1) & 1);
+        mbar_expect(wfull_bar(bars, slot), (unsigned)L.wt);
+        bulk_copy(wring + slot * (unsigned)L.wt, tiles + (size_t)i * tile,
+                  (unsigned)L.wt, wfull_bar(bars, slot));
+        if (++i == nstr) i = 0;
+        if (++slot == NBUF) slot = 0, ++use;
+      }
+    }
+    __syncwarp();
+  } else if (warp >= WARPS) {
+    // ---- producer (streamed mode: the rows warp): the stages of every
+    // step, the inputs two steps ahead --
     const unsigned rank = CS > 1 ? cluster_rank() : 0;
     const unsigned short mask = (unsigned short)((1u << CS) - 1);
     const unsigned seg = H * sizeof(T);
@@ -204,27 +252,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int unit = u + s / 4, q = s % 4;
         if (q == 0)
           wait_flag(p.flags + unit * FLAG_STRIDE, (e + 1) * per_unit, lane);
-        const T* src = p.dgates_seq + (size_t)k * B * G + q * UH + unit * H;
-        for (int c = 0; c < nc; ++c, ++g) {
-          // slot g % NBUF: the chunk's weight tile, then its dgates columns
+        for (int c = 0; c < ncr; ++c, ++g) {
+          // slot g % NBUF of the rows' ring: rows chunk c's dgates columns
+          // of gate q of `unit`
           const int slot = g % NBUF, use = g / NBUF;
           if (use > 0) mbar_wait(empty_bar(bars, slot), (use - 1) & 1);
-          const unsigned bytes = min(p.KC, H - c * p.KC) * sizeof(T);
-          const unsigned dst = ring_s + slot * L.slot;
-          if (lane == 0) {
-            mbar_expect(full_bar(bars, slot), rows * bytes + L.wt);
-            bulk_copy(dst, tiles + (size_t)(s * nc + c) * tile, L.wt,
+          if (lane == 0)
+            copy_rows(p.dmap, L, H, sizeof(T), c, q * p.U + unit, k, r0, rank,
+                      CS, ring_s + slot * (unsigned)L.slot,
                       full_bar(bars, slot));
-          }
           __syncwarp();
-          for (int r = rank + CS * lane; r < rows; r += 32 * CS) {
-            const T* row = src + (size_t)(r0 + r) * G + c * p.KC;
-            const unsigned at = dst + L.wt + r * L.rsc * sizeof(T);
-            if (CS > 1)
-              bulk_copy_mc(at, row, bytes, full_bar(bars, slot), mask);
-            else
-              bulk_copy(at, row, bytes, full_bar(bars, slot));
-          }
         }
       }
       for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
@@ -256,7 +293,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     // ---- consumers: the cells, then the product ----
     const int mtile = warp % L.mt, slice = warp / L.mt;
-    int g = 0;
+    // streamed mode: the rows slot's row this lane gives ldmatrix: row
+    // 16 mtile + 8 ((l / 8) % 2) + l % 8, unit half l / 16 (matrices a0-a3:
+    // rows g, g + 8 at k t, then at k t + 4); the rings' next slots and
+    // their phases
+    const SwzRow arow =
+        STREAM ? swz_row(L, smem_addr(smem + L.buf),
+                         mtile * 16 + ((lane >> 3) & 1) * 8 + (lane & 7))
+               : SwzRow{0, 0};
+    const unsigned ahalf = lane >> 4;
+    int g = 0, rslot = 0, rpar = 0, wslot = 0, wpar = 0;
     for (int e = 0; e < E; ++e) {
       const int kk = e % K, k = K - 1 - kk, r0 = e / K * MB;
       const int rows = min(MB, B - r0);
@@ -306,32 +352,47 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       float acc[SETS][NT][3][4];
       zero_acc(acc);
-      for (int s = 0; STREAM && s < nstage; ++s) {
-        for (int c = 0; c < nc; ++c, ++g) {
-          const int slot = g % NBUF;
-          mbar_wait(full_bar(bars, slot), (g / NBUF) & 1);
-          const int kv = (min(p.KC, H - c * p.KC) + L.kw - 1) / L.kw;
-          const unsigned char* sp = smem + L.buf + (size_t)slot * L.slot;
-          const T* stg = reinterpret_cast<const T*>(sp + L.wt);
-          const unsigned* lo_row = reinterpret_cast<const unsigned*>(
-              stg + (size_t)(mtile * 16 + g8) * L.rsc);
-          const unsigned* hi_row = reinterpret_cast<const unsigned*>(
-              stg + (size_t)(mtile * 16 + g8 + 8) * L.rsc);
-          const uint2* wb2 = reinterpret_cast<const uint2*>(sp) + lane;
-          stage_product<T, NT, SETS>(
-              acc, slice, kv, L.ks,
-              [&](int j, unsigned (&a)[4]) {
-                a[0] = lo_row[8 * j + t4];
-                a[1] = hi_row[8 * j + t4];
-                a[2] = lo_row[8 * j + t4 + 4];
-                a[3] = hi_row[8 * j + t4 + 4];
-              },
-              [&](int j, int n, unsigned (&b)[2]) {
-                const uint2 wv = wb2[(n * L.kpc + j) * 32];
-                b[0] = wv.x;
-                b[1] = wv.y;
-              });
-          release_slot(empty_bar(bars, slot), CS, lane);
+      // streamed mode: each stage's rows chunks, each over its weight
+      // chunks, the step's weight chunk i: the streamed ones (from their
+      // ring) first, then the resident ones
+      for (int s = 0, i = 0; STREAM && s < nstage; ++s) {
+        for (int r = 0; r < ncr; ++r) {
+          mbar_wait(full_bar(bars, rslot), rpar);
+          const unsigned rs = smem_addr(smem + L.buf) + rslot * (unsigned)L.slot;
+          for (int c = r * per; c < min(nc, (r + 1) * per); ++c, ++i) {
+            const bool streamed = i < nstr;
+            const unsigned char* wp;
+            if (streamed) {
+              mbar_wait(wfull_bar(bars, wslot), wpar);
+              wp = smem + L.w + (size_t)wslot * L.wt;
+            } else {
+              if (e == 0 && i == nstr) mbar_wait(res_bar(bars), 0);
+              wp = smem + L.res + (size_t)(i - nstr) * L.wt;
+            }
+            const int kv = (min(p.KC, H - c * p.KC) + L.kw - 1) / L.kw;
+            const int p0 = (c - r * per) * L.kpc / 4;  // its first piece
+            const uint2* wb2 = reinterpret_cast<const uint2*>(wp) + lane;
+#ifndef WAVEFRONT_STREAM_NO_PRODUCT
+            // A: dgates of batch rows 16 mtile + g (+8) at the k-tile's 32
+            // bytes (words t, t + 4)
+            stage_product<T, NT, SETS>(
+                acc, slice, kv, L.ks,
+                [&](int j, unsigned (&a)[4]) {
+                  ldsm_x4(swz_addr(L, arow, rs, p0, j, ahalf), a[0], a[1],
+                          a[2], a[3]);
+                },
+                [&](int j, int n, unsigned (&b)[2]) {
+                  const uint2 wv = wb2[(n * L.kpc + j) * 32];
+                  b[0] = wv.x;
+                  b[1] = wv.y;
+                });
+#endif
+            const bool last = c + 1 == min(nc, (r + 1) * per);
+            release_chunk(streamed ? wempty_bar(bars, wslot) : 0u,
+                          last ? empty_bar(bars, rslot) : 0u, CS, warp, lane);
+            if (streamed && ++wslot == NBUF) wslot = 0, wpar ^= 1;
+          }
+          if (++rslot == NBUF) rslot = 0, rpar ^= 1;
         }
       }
       for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
@@ -414,21 +475,38 @@ int launch(const void* wb, const void* gates_seq, const void* c_seq,
            const void* c_prev_seq, const void* dy, const void* dh0,
            const void* dc0, const void* lvec, void* dgates_seq, void* dh_fin,
            void* dc_fin, void* flags, int K, int B, int U, int H, int S, int N,
-           int CS, int MB, int NBUF, int KC, int smem, void* stream) {
-  const Layout L = STREAM ? stream_layout<T, false>(H, N, MB, NBUF, KC)
+           int CS, int MB, int NBUF, int KC, int RC, int KR, int smem,
+           void* stream) {
+  const int item = (int)sizeof(T);
+  const Layout L = STREAM ? stream_layout<T, false>(N, MB, CS, NBUF, KC, RC, KR)
                           : grid_layout<T, false>(H, N, MB, NBUF);
-  if (STREAM ? !stream_args_ok(H, N, CS, MB, NBUF, KC, L.kw, smem, L.total)
+  if (STREAM ? !stream_args_ok(H, N, CS, MB, NBUF, KC, RC, KR, item, smem,
+                               L.total)
              : !grid_args_ok(H, N, CS, MB, NBUF, smem, L.total))
     return (int)cudaErrorInvalidValue;
-  BwdParams<T> p = {(const T*)wb,        (const T*)gates_seq,
-                    (const T*)c_seq,     (const T*)c_prev_seq,
-                    (const T*)dy,        (const T*)dh0,
-                    (const T*)dc0,       (const int*)lvec,
-                    (T*)dgates_seq,      (T*)dh_fin,
-                    (T*)dc_fin,          (unsigned*)flags,
-                    K, B, U, H, S, N, CS, MB, NBUF, KC};
+  BwdParams<T> p = {};
+  p.wb = (const T*)wb;
+  p.gates_seq = (const T*)gates_seq;
+  p.c_seq = (const T*)c_seq;
+  p.c_prev_seq = (const T*)c_prev_seq;
+  p.dy = (const T*)dy;
+  p.dh0 = (const T*)dh0;
+  p.dc0 = (const T*)dc0;
+  p.lvec = (const int*)lvec;
+  p.dgates_seq = (T*)dgates_seq;
+  p.dh_fin = (T*)dh_fin;
+  p.dc_fin = (T*)dc_fin;
+  p.flags = (unsigned*)flags;
+  p.K = K, p.B = B, p.U = U, p.H = H, p.S = S, p.N = N, p.CS = CS;
+  p.MB = MB, p.NBUF = NBUF, p.KC = KC, p.RC = RC, p.KR = KR;
+  if (STREAM) {  // dgates rows at 4 U H values (gate-major), B rows a step
+    const size_t row = (size_t)4 * U * H * item;
+    const int err = row_maps<T>(&p.dmap, dgates_seq, H, 4 * U, B, K, row,
+                                (size_t)B * row, L);
+    if (err) return err;
+  }
   return grid_launch(kernel_for<T, STREAM>(N), &p, U * ((H + N - 1) / N), CS,
-                     smem, stream);
+                     smem, stream, STREAM ? STREAM_THREADS : THREADS);
 }
 
 }  // namespace
@@ -443,31 +521,35 @@ int launch(const void* wb, const void* gates_seq, const void* c_seq,
 extern "C" int wavefront_grid_bwd_f32(GRID_BWD_ARGS, int smem, void* stream) {
   return launch<float, false>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0,
                               lvec, dgates_seq, dh_fin, dc_fin, flags, K, B,
-                              U, H, S, N, CS, MB, NBUF, 0, smem, stream);
+                              U, H, S, N, CS, MB, NBUF, 0, 0, 0, smem, stream);
 }
 
 extern "C" int wavefront_grid_bwd_bf16(GRID_BWD_ARGS, int smem, void* stream) {
   return launch<__nv_bfloat16, false>(wb, gates_seq, c_seq, c_prev_seq, dy,
                                       dh0, dc0, lvec, dgates_seq, dh_fin,
                                       dc_fin, flags, K, B, U, H, S, N, CS, MB,
-                                      NBUF, 0, smem, stream);
+                                      NBUF, 0, 0, 0, smem, stream);
 }
 
 // The streamed mode: `wb` is the wrapper's tiles (kernels/wavefront.py::
-// _stream_tiles), KC the depths of a chunk; the other arguments as above
-extern "C" int wavefront_grid_bwd_stream_f32(GRID_BWD_ARGS, int KC, int smem,
-                                             void* stream) {
+// _stream_tiles), NBUF the slots of each of its rings (rows, weights), KC
+// the depths of a weight chunk, RC those of a rows chunk (whole weight
+// chunks), KR the resident chunks a CTA; the other arguments as above.
+// Returns the CUDA error of the launch, or 10000 + the CUresult of
+// cuTensorMapEncodeTiled where it refuses a tensor map.
+extern "C" int wavefront_grid_bwd_stream_f32(GRID_BWD_ARGS, int KC, int RC,
+                                             int KR, int smem, void* stream) {
   return launch<float, true>(wb, gates_seq, c_seq, c_prev_seq, dy, dh0, dc0,
                              lvec, dgates_seq, dh_fin, dc_fin, flags, K, B, U,
-                             H, S, N, CS, MB, NBUF, KC, smem, stream);
+                             H, S, N, CS, MB, NBUF, KC, RC, KR, smem, stream);
 }
 
-extern "C" int wavefront_grid_bwd_stream_bf16(GRID_BWD_ARGS, int KC, int smem,
-                                              void* stream) {
+extern "C" int wavefront_grid_bwd_stream_bf16(GRID_BWD_ARGS, int KC, int RC,
+                                              int KR, int smem, void* stream) {
   return launch<__nv_bfloat16, true>(wb, gates_seq, c_seq, c_prev_seq, dy,
                                      dh0, dc0, lvec, dgates_seq, dh_fin,
                                      dc_fin, flags, K, B, U, H, S, N, CS, MB,
-                                     NBUF, KC, smem, stream);
+                                     NBUF, KC, RC, KR, smem, stream);
 }
 
 // How many CTAs of the reverse wavefront (four n8 tiles) the card holds at
@@ -485,5 +567,5 @@ extern "C" int wavefront_grid_bwd_stream_max_ctas(int bf16, int CS,
                                                   int smem) {
   return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, true>(64)
                             : kernel_for<float, true>(64),
-                       smem, CS);
+                       smem, CS, STREAM_THREADS);
 }

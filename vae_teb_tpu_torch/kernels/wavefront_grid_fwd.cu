@@ -50,23 +50,40 @@
 // Streamed weights (entry points wavefront_grid_{fwd,fwd_res}_stream_*,
 // the plan kind "stream"): where no N leaves the 2H x 4N slice room in 227
 // KB of shared memory (fp32 H over 520, bf16 over 1056), or a unit's CTAs
-// at N <= 32 outnumber what the card holds, the same kernel runs with
-// nothing that grows with H resident. The wrapper packs every CTA's slice
-// in global memory, each (unit, column block, stage, chunk of KC depths)
-// one contiguous tile of 4N x KC values in A-fragment order (a unit of
-// layer 0 has no feed stage and no tile for it), every call, on the
-// stream (kernels/wavefront.py::_stream_tiles). Each step is a k-loop over
-// the stages' chunks through a ring of slots: the producer bulk-copies a
-// chunk's weight tile and the chunk's KC columns of the stage's h rows
-// (multicast to the cluster) into one slot, counted on its `full`
-// mbarrier; the consumers' mma on one slot overlaps the copies into the
-// next ones. What bounds it is no longer the step's hand-off alone but
-// the weights' bytes: the whole slice crosses from L2 (or, past L2, from
-// HBM) into the SM every step. It computes what the resident mode
-// computes: only the summation order differs, each warp's accumulator
-// sets restarting their k-tile count at every chunk, which
-// tests/test_torch_streamed.py emulates; the plain version
-// (kernels/wavefront_ref.py) is its oracle as it is the resident mode's.
+// at N <= 32 outnumber what the card holds, the same kernel runs with the
+// slice in global memory. The wrapper packs every CTA's slice, each (unit,
+// column block, stage, chunk of KC depths) one contiguous tile of 4N x KC
+// values in A-fragment order (a unit of layer 0 has no feed stage and no
+// tile for it), every call, on the stream (kernels/wavefront.py::
+// _stream_tiles). Each step is a k-loop over the stages' chunks. What
+// bounds it on the card (chip_smoke.py phase 15 (d); PERF.md section 6)
+// is not the bytes from L2 (the same launches without their
+// products take half to three quarters of the time; keeping chunks
+// resident moves nothing) but the step's chain: the hand-off (h[k-1] of
+// units u and u-1 from other CTAs), then the product, its k-loop bound by
+// its loads and 3xTF32 splits more than by the mma, then the cells and
+// the publish. The design takes everything it can off that chain, and
+// makes each k-chunk cheap:
+//   - a weights warp streams the tiles through a ring of slots of their
+//     own as fast as the consumers free them, across step boundaries
+//     (they do not depend on the step), so a step's first tiles are in
+//     shared memory before its flags are; the last KR chunks of a CTA's
+//     step (what the 227 KB hold beside the rings, kernels/wavefront.py::
+//     _stream_plan) stay resident for all K steps, the streamed ones come
+//     first in a step;
+//   - a rows warp waits on the flags and brings the h rows in chunks of up
+//     to 2 KB a row with one tensor-map copy a CTA (its 1/CS of the rows,
+//     multicast to the cluster, 128-byte swizzled) into a ring of its own;
+//   - chunks are as deep as the rings allow, and the consumers free a
+//     chunk's slots once they meet (one arrival a CTA), so a step takes
+//     few hand-offs; the swizzled B fragments load by ldmatrix, two n8
+//     tiles an instruction, free of bank conflicts (a cluster leaves each
+//     CTA at least 8 of the pass's rows).
+// It computes what the resident mode computes: only the summation order
+// differs, each warp's accumulator sets restarting their k-tile count at
+// every chunk, which tests/test_torch_streamed.py emulates; the plain
+// version (kernels/wavefront_ref.py) is its oracle as it is the resident
+// mode's.
 //
 // Plain C interface: each entry point launches on the given stream and
 // returns the CUDA error of the launch (0 on success).
@@ -77,6 +94,7 @@ namespace {
 
 template <typename T>
 struct FwdParams {
+  RowMaps hmap, imap;  // streamed mode: tensor maps of h_seq and h0
   const T* wf;  // [U][2H/4][4][H][4], wavefront_fwd.cu's layout
   const T* b;
   const T* xs;
@@ -90,7 +108,9 @@ struct FwdParams {
   T* c_fin;
   unsigned* flags;
   int K, B, U, H, S, N, CS, MB, NBUF;
-  int KC;  // streamed mode: depths a chunk
+  // streamed mode: depths a weight chunk and a rows chunk, resident
+  // chunks a CTA
+  int KC, RC, KR;
 };
 
 // Wf[u] at depth dd (own rows 0..H-1, feed rows H..2H-1), gate column
@@ -107,10 +127,11 @@ __device__ __forceinline__ unsigned wf_bits(const FwdParams<T>& p, int u,
 // NT: n8 tiles of batch rows a pass, 1-4; STREAM: the streamed mode, whose
 // warps take MTW m-tiles each (2 at N = 64, else 1)
 template <typename T, bool RESIDUALS, int NT, bool STREAM, int MTW>
-__global__ void __launch_bounds__(THREADS, 1)
-    wavefront_grid_fwd_kernel(const FwdParams<T> p) {
+__global__ void __launch_bounds__(STREAM ? STREAM_THREADS : THREADS, 1)
+    wavefront_grid_fwd_kernel(const __grid_constant__ FwdParams<T> p) {
   constexpr bool TF32 = sizeof(T) == 4;
   constexpr int SETS = sets_for(NT);
+  constexpr int NTHREADS = STREAM ? STREAM_THREADS : THREADS;
   const int K = p.K, B = p.B, H = p.H, N = p.N, CS = p.CS, MB = p.MB;
   // CTAs a unit: the streamed mode's last one may own fewer than N columns
   const int NBUF = p.NBUF, UH = p.U * H, G = 4 * UH;
@@ -121,12 +142,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int g8 = lane / 4, t4 = lane % 4;
   const int layer = p.lvec[u];
   const int nstage = layer > 0 ? 2 : 1;  // unit u, then unit u-1
-  const Layout L = STREAM ? stream_layout<T, true>(H, N, MB, NBUF, p.KC)
-                          : grid_layout<T, true>(H, N, MB, NBUF);
+  const Layout L = STREAM
+                       ? stream_layout<T, true>(N, MB, CS, NBUF, p.KC, p.RC, p.KR)
+                       : grid_layout<T, true>(H, N, MB, NBUF);
   const int KTT = L.stages * L.kts;
   const int E = (B + MB - 1) / MB * K;  // steps of all passes
-  // streamed mode: chunks a stage, and this CTA's first weight tile
+  // streamed mode: weight chunks a stage and a step, the step's streamed
+  // chunks (the first nstr; the other min(KR, nch) resident), rows chunks
+  // a stage and weight chunks a rows chunk, and this CTA's first weight
+  // tile
   const int nc = STREAM ? (H + p.KC - 1) / p.KC : 0;
+  const int nch = nstage * nc, nstr = max(0, nch - p.KR);
+  const int ncr = STREAM ? (H + p.RC - 1) / p.RC : 0;
+  const int per = STREAM ? p.RC / p.KC : 1;
   const size_t tile = L.wt / sizeof(T);
   const T* tiles =
       STREAM ? p.wf + (units_tiles(u, per_unit, nc,
@@ -147,10 +175,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* h_c = reinterpret_cast<float*>(smem + L.carry);  // [MB][N]
   float* c_c = h_c + MB * N;
 
-  grid_init_barriers(bars, NBUF, CS, STREAM ? WARPS : 1);
-  // the ring starts zeroed: a chunk shorter than KC leaves earlier rows'
-  // (finite) values past its end, which meet zero weights
-  for (int i = tid; i < (int)((L.part - L.buf) / 16); i += THREADS)
+  if (STREAM)
+    stream_init_barriers(bars, NBUF, CS);
+  else
+    grid_init_barriers(bars, NBUF, CS);
+  // the rows' ring starts zeroed: a chunk shorter than KC leaves earlier
+  // rows' (finite) values in its pieces past H, which meet zero weights
+  for (int i = tid; i < (int)(((STREAM ? L.w : L.part) - L.buf) / 16);
+       i += NTHREADS)
     reinterpret_cast<uint4*>(smem + L.buf)[i] = make_uint4(0, 0, 0, 0);
   // A fragments of the weight slice: [mt][KTT][lane][4], register r of
   // lane (g, t) holding A[m][d] at m = 16 mt + g (+8 for r odd), d = kw j +
@@ -158,7 +190,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Wf[u][s H + d][q H + t0 + c], zero past H and for a missing stage. The
   // streamed mode's tiles hold the same fragments, [mt][kpc][lane][4] a
   // chunk.
-  for (int i = tid; !STREAM && i < L.mt * KTT * 128; i += THREADS) {
+  for (int i = tid; !STREAM && i < L.mt * KTT * 128; i += NTHREADS) {
     const int r = i & 3, ln = (i >> 2) & 31, f = i >> 7;
     const int kt = f % KTT, mtile = f / KTT, s = kt / L.kts;
     const int m = mtile * 16 + ln / 4 + (r & 1) * 8, q = m / N, c = m % N;
@@ -175,15 +207,37 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     w_s[i] = v;
   }
-  for (int i = tid; i < 4 * N; i += THREADS)
+  for (int i = tid; i < 4 * N; i += NTHREADS)
     b_s[i] = i % N < nv ? load_f32(p.b + (i / N) * UH + u * H + t0 + i % N)
                         : 0.f;
   grid_start(CS);
 
   const bool ring = NBUF < nstage;  // else stage s keeps buffer s
 
-  if (warp == WARPS) {
-    // ---- producer: the stages of every step, the inputs a step ahead ----
+  if (STREAM && warp == WARPS) {
+    // ---- streamed mode's weights: the resident chunks once, then the
+    // streamed chunks of every step in order, each as soon as the ring
+    // has a free slot ----
+    if (lane == 0) {
+      if (nstr < nch) {
+        mbar_expect(res_bar(bars), (unsigned)((nch - nstr) * L.wt));
+        bulk_copy(smem_addr(smem + L.res), tiles + (size_t)nstr * tile,
+                  (unsigned)((nch - nstr) * L.wt), res_bar(bars));
+      }
+      const unsigned wring = smem_addr(smem + L.w);
+      for (int n = 0, i = 0, slot = 0, use = 0; n < E * nstr; ++n) {
+        if (use > 0) mbar_wait(wempty_bar(bars, slot), (use - 1) & 1);
+        mbar_expect(wfull_bar(bars, slot), (unsigned)L.wt);
+        bulk_copy(wring + slot * (unsigned)L.wt, tiles + (size_t)i * tile,
+                  (unsigned)L.wt, wfull_bar(bars, slot));
+        if (++i == nstr) i = 0;
+        if (++slot == NBUF) slot = 0, ++use;
+      }
+    }
+    __syncwarp();
+  } else if (warp >= WARPS) {
+    // ---- producer (streamed mode: the rows warp): the stages of every
+    // step, the inputs a step ahead ----
     const unsigned rank = CS > 1 ? cluster_rank() : 0;
     const unsigned short mask = (unsigned short)((1u << CS) - 1);
     const unsigned seg = H * sizeof(T);
@@ -212,26 +266,15 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int s = 0; STREAM && s < nstage; ++s) {
         if (kk > 0)
           wait_flag(p.flags + (u - s) * FLAG_STRIDE, e * per_unit, lane);
-        for (int c = 0; c < nc; ++c, ++g) {
-          // slot g % NBUF: the chunk's weight tile, then its h columns
+        for (int c = 0; c < ncr; ++c, ++g) {
+          // slot g % NBUF of the rows' ring: rows chunk c's h columns
           const int slot = g % NBUF, use = g / NBUF;
           if (use > 0) mbar_wait(empty_bar(bars, slot), (use - 1) & 1);
-          const unsigned bytes = min(p.KC, H - c * p.KC) * sizeof(T);
-          const unsigned dst = ring_s + slot * L.slot;
-          if (lane == 0) {
-            mbar_expect(full_bar(bars, slot), rows * bytes + L.wt);
-            bulk_copy(dst, tiles + (size_t)(s * nc + c) * tile, L.wt,
-                      full_bar(bars, slot));
-          }
+          if (lane == 0)
+            copy_rows(kk ? p.hmap : p.imap, L, H, sizeof(T), c, u - s,
+                      kk ? kk - 1 : 0, r0, rank, CS,
+                      ring_s + slot * (unsigned)L.slot, full_bar(bars, slot));
           __syncwarp();
-          for (int r = rank + CS * lane; r < rows; r += 32 * CS) {
-            const T* row = src + (size_t)(r0 + r) * UH + (u - s) * H + c * p.KC;
-            const unsigned at = dst + L.wt + r * L.rsc * sizeof(T);
-            if (CS > 1)
-              bulk_copy_mc(at, row, bytes, full_bar(bars, slot), mask);
-            else
-              bulk_copy(at, row, bytes, full_bar(bars, slot));
-          }
         }
       }
       for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
@@ -262,41 +305,83 @@ __global__ void __launch_bounds__(THREADS, 1)
     // ---- consumers: the product, then the cells ----
     const int wmt = L.mt < WARPS ? L.mt : WARPS;  // m-tiles a round of warps
     const int mtile = warp % wmt, slice = warp / wmt;
-    int g = 0;
+    // streamed mode: the rows slot's rows this lane gives ldmatrix, for
+    // each pair of n8 tiles (2q, 2q + 1): row 8 (2q + l / 16) + l % 8, unit
+    // half (l / 8) % 2 (the last tile of an odd NT alone, by x2); the
+    // rings' next slots and phases
+    constexpr int NQ = (NT + 1) / 2;
+    SwzRow brow[NQ];
+    const unsigned bhalf = (lane >> 3) & 1;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      brow[q] = STREAM ? swz_row(L, smem_addr(smem + L.buf),
+                                 min(2 * q + (lane >> 4), NT - 1) * 8 +
+                                     (lane & 7))
+                       : SwzRow{0, 0};
+    int g = 0, rslot = 0, rpar = 0, wslot = 0, wpar = 0;
     for (int e = 0; e < E; ++e) {
       const int kk = e % K, r0 = e / K * MB, rows = min(MB, B - r0);
       const bool valid = layer <= kk && kk < p.S + layer;
       float acc[MTW][SETS][NT][3][4];
 #pragma unroll
       for (int mi = 0; mi < MTW; ++mi) zero_acc(acc[mi]);
-      for (int s = 0; STREAM && s < nstage; ++s) {
-        for (int c = 0; c < nc; ++c, ++g) {
-          const int slot = g % NBUF;
-          mbar_wait(full_bar(bars, slot), (g / NBUF) & 1);
-          const int kv = (min(p.KC, H - c * p.KC) + L.kw - 1) / L.kw;
-          const unsigned char* sp = smem + L.buf + (size_t)slot * L.slot;
-          const T* stg = reinterpret_cast<const T*>(sp + L.wt);
+      // streamed mode: each stage's rows chunks, each over its weight
+      // chunks, the step's weight chunk i: the streamed ones (from their
+      // ring) first, then the resident ones
+      for (int s = 0, i = 0; STREAM && s < nstage; ++s) {
+        for (int r = 0; r < ncr; ++r) {
+          mbar_wait(full_bar(bars, rslot), rpar);
+          const unsigned rs = smem_addr(smem + L.buf) + rslot * (unsigned)L.slot;
+          unsigned bt[NT][2];  // this k-tile's B fragments, by ldmatrix
+          for (int c = r * per; c < min(nc, (r + 1) * per); ++c, ++i) {
+            const bool streamed = i < nstr;
+            const unsigned char* wp;
+            if (streamed) {
+              mbar_wait(wfull_bar(bars, wslot), wpar);
+              wp = smem + L.w + (size_t)wslot * L.wt;
+            } else {
+              if (e == 0 && i == nstr) mbar_wait(res_bar(bars), 0);
+              wp = smem + L.res + (size_t)(i - nstr) * L.wt;
+            }
+            const int kv = (min(p.KC, H - c * p.KC) + L.kw - 1) / L.kw;
+            const int p0 = (c - r * per) * L.kpc / 4;  // its first piece
+#ifndef WAVEFRONT_STREAM_NO_PRODUCT
 #pragma unroll
-          for (int mi = 0; mi < MTW; ++mi) {
-            const uint4* wf4 = reinterpret_cast<const uint4*>(sp) +
-                               (mtile + mi * WARPS) * L.kpc * 32 + lane;
-            stage_product<T, NT, SETS>(
-                acc[mi], slice, kv, L.ks,
-                [&](int j, unsigned (&a)[4]) {
-                  const uint4 wv = wf4[j * 32];
-                  a[0] = wv.x;
-                  a[1] = wv.y;
-                  a[2] = wv.z;
-                  a[3] = wv.w;
-                },
-                [&](int j, int n, unsigned (&b)[2]) {
-                  const unsigned* hw = reinterpret_cast<const unsigned*>(
-                      stg + (size_t)(n * 8 + g8) * L.rsc + j * L.kw);
-                  b[0] = hw[t4];
-                  b[1] = hw[t4 + 4];
-                });
+            for (int mi = 0; mi < MTW; ++mi) {
+              const uint4* wf4 = reinterpret_cast<const uint4*>(wp) +
+                                 (mtile + mi * WARPS) * L.kpc * 32 + lane;
+              // B: h of batch rows 8n + g at the k-tile's 32 bytes (words
+              // t, t + 4)
+              stage_product<T, NT, SETS>(
+                  acc[mi], slice, kv, L.ks,
+                  [&](int j, unsigned (&a)[4]) {
+                    const uint4 wv = wf4[j * 32];
+                    a[0] = wv.x;
+                    a[1] = wv.y;
+                    a[2] = wv.z;
+                    a[3] = wv.w;
+                  },
+                  [&](int j, int n, unsigned (&b)[2]) {
+                    if (n % 2 == 0) {  // n8 tiles n, n + 1 in one ldmatrix
+                      const unsigned a =
+                          swz_addr(L, brow[n / 2], rs, p0, j, bhalf);
+                      if (n + 1 < NT)
+                        ldsm_x4(a, bt[n][0], bt[n][1], bt[n + 1][0],
+                                bt[n + 1][1]);
+                      else
+                        ldsm_x2(a, bt[n][0], bt[n][1]);
+                    }
+                    b[0] = bt[n][0];
+                    b[1] = bt[n][1];
+                  });
+            }
+#endif
+            const bool last = c + 1 == min(nc, (r + 1) * per);
+            release_chunk(streamed ? wempty_bar(bars, wslot) : 0u,
+                          last ? empty_bar(bars, rslot) : 0u, CS, warp, lane);
+            if (streamed && ++wslot == NBUF) wslot = 0, wpar ^= 1;
           }
-          release_slot(empty_bar(bars, slot), CS, lane);
+          if (++rslot == NBUF) rslot = 0, rpar ^= 1;
         }
       }
       for (int s = 0; !STREAM && s < nstage; ++s, ++g) {
@@ -419,21 +504,40 @@ int launch(const void* w, const void* b, const void* xs, const void* h0,
            const void* c0, const void* lvec, void* h_seq, void* gates_seq,
            void* c_seq, void* h_fin, void* c_fin, void* flags, int K, int B,
            int U, int H, int S, int N, int CS, int MB, int NBUF, int KC,
-           int smem, void* stream) {
-  const Layout L = STREAM ? stream_layout<T, true>(H, N, MB, NBUF, KC)
+           int RC, int KR, int smem, void* stream) {
+  const int item = (int)sizeof(T);
+  const Layout L = STREAM ? stream_layout<T, true>(N, MB, CS, NBUF, KC, RC, KR)
                           : grid_layout<T, true>(H, N, MB, NBUF);
-  if (STREAM ? !stream_args_ok(H, N, CS, MB, NBUF, KC, L.kw, smem, L.total)
+  if (STREAM ? !stream_args_ok(H, N, CS, MB, NBUF, KC, RC, KR, item, smem,
+                               L.total)
              : !grid_args_ok(H, N, CS, MB, NBUF, smem, L.total) || NBUF > 2)
     return (int)cudaErrorInvalidValue;
-  FwdParams<T> p = {(const T*)w,      (const T*)b,     (const T*)xs,
-                    (const T*)h0,     (const T*)c0,    (const int*)lvec,
-                    (T*)h_seq,        (T*)gates_seq,   (T*)c_seq,
-                    (T*)h_fin,        (T*)c_fin,       (unsigned*)flags,
-                    K, B, U, H, S, N, CS, MB, NBUF, KC};
+  FwdParams<T> p = {};
+  p.wf = (const T*)w;
+  p.b = (const T*)b;
+  p.xs = (const T*)xs;
+  p.h0 = (const T*)h0;
+  p.c0 = (const T*)c0;
+  p.lvec = (const int*)lvec;
+  p.h_seq = (T*)h_seq;
+  p.gates_seq = (T*)gates_seq;
+  p.c_seq = (T*)c_seq;
+  p.h_fin = (T*)h_fin;
+  p.c_fin = (T*)c_fin;
+  p.flags = (unsigned*)flags;
+  p.K = K, p.B = B, p.U = U, p.H = H, p.S = S, p.N = N, p.CS = CS;
+  p.MB = MB, p.NBUF = NBUF, p.KC = KC, p.RC = RC, p.KR = KR;
+  if (STREAM) {  // h rows at U H values, a step's B rows
+    const size_t row = (size_t)U * H * item, step = (size_t)B * row;
+    int err = row_maps<T>(&p.hmap, h_seq, H, U, B, K, row, step, L);
+    if (!err) err = row_maps<T>(&p.imap, h0, H, U, B, 1, row, step, L);
+    if (err) return err;
+  }
   const void* kernel = STREAM && N == 64
                            ? kernel_for<T, RESIDUALS, true, 2>(L.nt)
                            : kernel_for<T, RESIDUALS, STREAM, 1>(L.nt);
-  return grid_launch(kernel, &p, U * ((H + N - 1) / N), CS, smem, stream);
+  return grid_launch(kernel, &p, U * ((H + N - 1) / N), CS, smem, stream,
+                     STREAM ? STREAM_THREADS : THREADS);
 }
 
 }  // namespace
@@ -448,47 +552,52 @@ int launch(const void* w, const void* b, const void* xs, const void* h0,
 extern "C" int wavefront_grid_fwd_f32(GRID_FWD_ARGS, GRID_FWD_INTS) {
   return launch<float, false, false>(w, b, xs, h0, c0, lvec, h_seq, nullptr,
                                      nullptr, h_fin, c_fin, flags, K, B, U, H,
-                                     S, N, CS, MB, NBUF, 0, smem, stream);
+                                     S, N, CS, MB, NBUF, 0, 0, 0, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_bf16(GRID_FWD_ARGS, GRID_FWD_INTS) {
   return launch<__nv_bfloat16, false, false>(
       w, b, xs, h0, c0, lvec, h_seq, nullptr, nullptr, h_fin, c_fin, flags, K,
-      B, U, H, S, N, CS, MB, NBUF, 0, smem, stream);
+      B, U, H, S, N, CS, MB, NBUF, 0, 0, 0, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_res_f32(GRID_FWD_ARGS, void* gates_seq,
                                           void* c_seq, GRID_FWD_INTS) {
   return launch<float, true, false>(w, b, xs, h0, c0, lvec, h_seq, gates_seq,
                                     c_seq, h_fin, c_fin, flags, K, B, U, H, S,
-                                    N, CS, MB, NBUF, 0, smem, stream);
+                                    N, CS, MB, NBUF, 0, 0, 0, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_res_bf16(GRID_FWD_ARGS, void* gates_seq,
                                            void* c_seq, GRID_FWD_INTS) {
   return launch<__nv_bfloat16, true, false>(
       w, b, xs, h0, c0, lvec, h_seq, gates_seq, c_seq, h_fin, c_fin, flags, K,
-      B, U, H, S, N, CS, MB, NBUF, 0, smem, stream);
+      B, U, H, S, N, CS, MB, NBUF, 0, 0, 0, smem, stream);
 }
 
 // The streamed mode: `w` is the wrapper's tiles (kernels/wavefront.py::
-// _stream_tiles), KC the depths of a chunk; the other arguments as above
+// _stream_tiles), NBUF the slots of each of its rings (rows, weights), KC
+// the depths of a weight chunk, RC those of a rows chunk (whole weight
+// chunks), KR the resident chunks a CTA; the other arguments as above.
+// Returns the CUDA error of the launch, or 10000 + the CUresult of
+// cuTensorMapEncodeTiled where it refuses a tensor map.
 #define GRID_FWD_STREAM_INTS                                                 \
   void *h_fin, void *c_fin, void *flags, int K, int B, int U, int H, int S, \
-      int N, int CS, int MB, int NBUF, int KC, int smem, void *stream
+      int N, int CS, int MB, int NBUF, int KC, int RC, int KR, int smem,  \
+      void *stream
 
 extern "C" int wavefront_grid_fwd_stream_f32(GRID_FWD_ARGS,
                                              GRID_FWD_STREAM_INTS) {
   return launch<float, false, true>(w, b, xs, h0, c0, lvec, h_seq, nullptr,
                                     nullptr, h_fin, c_fin, flags, K, B, U, H,
-                                    S, N, CS, MB, NBUF, KC, smem, stream);
+                                    S, N, CS, MB, NBUF, KC, RC, KR, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_stream_bf16(GRID_FWD_ARGS,
                                               GRID_FWD_STREAM_INTS) {
   return launch<__nv_bfloat16, false, true>(
       w, b, xs, h0, c0, lvec, h_seq, nullptr, nullptr, h_fin, c_fin, flags, K,
-      B, U, H, S, N, CS, MB, NBUF, KC, smem, stream);
+      B, U, H, S, N, CS, MB, NBUF, KC, RC, KR, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_res_stream_f32(GRID_FWD_ARGS,
@@ -496,7 +605,7 @@ extern "C" int wavefront_grid_fwd_res_stream_f32(GRID_FWD_ARGS,
                                                  GRID_FWD_STREAM_INTS) {
   return launch<float, true, true>(w, b, xs, h0, c0, lvec, h_seq, gates_seq,
                                    c_seq, h_fin, c_fin, flags, K, B, U, H, S,
-                                   N, CS, MB, NBUF, KC, smem, stream);
+                                   N, CS, MB, NBUF, KC, RC, KR, smem, stream);
 }
 
 extern "C" int wavefront_grid_fwd_res_stream_bf16(GRID_FWD_ARGS,
@@ -504,7 +613,7 @@ extern "C" int wavefront_grid_fwd_res_stream_bf16(GRID_FWD_ARGS,
                                                   GRID_FWD_STREAM_INTS) {
   return launch<__nv_bfloat16, true, true>(
       w, b, xs, h0, c0, lvec, h_seq, gates_seq, c_seq, h_fin, c_fin, flags, K,
-      B, U, H, S, N, CS, MB, NBUF, KC, smem, stream);
+      B, U, H, S, N, CS, MB, NBUF, KC, RC, KR, smem, stream);
 }
 
 // How many CTAs of the residual forward (four n8 tiles) the card holds at
@@ -522,5 +631,5 @@ extern "C" int wavefront_grid_fwd_stream_max_ctas(int bf16, int CS,
                                                   int smem) {
   return grid_max_ctas(bf16 ? kernel_for<__nv_bfloat16, true, true, 2>(4)
                             : kernel_for<float, true, true, 2>(4),
-                       smem, CS);
+                       smem, CS, STREAM_THREADS);
 }
