@@ -1,0 +1,12 @@
+"""step_device_ms.train: device milliseconds a step: CUDA events around each group of K replayed
+steps, the mean over the window's groups, over K.
+
+Layer: Training step (`Trainer.train_multi_step`, `StepGraph.replay`). Moves `train_windows_per_s`. Reads the harness's readings of a
+`--trace 1` run; returns None where it finds nothing to read."""
+
+
+def read(r):
+    ms = r.get("group_ms") or []
+    if r.get("kind") != "train" or not ms:
+        return None
+    return sum(ms) / len(ms) / r["K"]

@@ -1,0 +1,13 @@
+"""step_mfu.train: the whole step's share of the card's peak: the model's FLOPs of a step
+(`counts.step_flops`, 3x the forward) times the window's steps, over the
+window's seconds and the peak of the configuration's precision, in %.
+
+Layer: Training step (`Trainer.train_multi_step`, `StepGraph.replay`). Moves `train_windows_per_s`. Reads the harness's readings of a
+`--trace 1` run; returns None where it finds nothing to read."""
+
+
+def read(r):
+    if r.get("kind") != "train" or not r["steps"]:
+        return None
+    return 100.0 * r["flops_per_step"] * r["steps"] / r["window_s"] / \
+        r["peak_flops"]
