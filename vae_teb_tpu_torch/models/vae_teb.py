@@ -41,6 +41,7 @@ import torch.nn as nn
 
 from ..kernels import wavefront_recurrence
 from ..parallel.collectives import draw, local_rows
+from ..utils import profiling
 from .blocks import (LSTM, CausalConvBlock, Dtype, LayerNorm,
                      ReflectConvBlock, ResidualMLP, geometric_schedule, gelu,
                      run_lstm_streams)
@@ -477,10 +478,19 @@ class SeqVaeTeb(nn.Module):
         `eps` of mu_post's shape (noise shared between two runs, or with
         the JAX package). One of the two is required. eps is drawn in, or
         cast to, mu_post's dtype (the compute dtype) and z is formed in it,
-        as the JAX package draws its noise in the compute dtype."""
-        enc = self.encode(y_st, y_ph, x_ph)
-        z = sample_z(enc, deterministic, generator, eps)
-        linear_output, mu_pr, logvar_pr = self.decoder(z)
+        as the JAX package draws its noise in the compute dtype.
+
+        Spans `model.encode` (the encoders and z) and `model.decode` (the
+        decoder and its raw heads); stage marks `encode`, `decode` and,
+        where z has a gradient, `decode_backward` (`utils.profiling`)."""
+        with profiling.span("model.encode"):
+            enc = self.encode(y_st, y_ph, x_ph)
+            z = sample_z(enc, deterministic, generator, eps)
+            profiling.mark("encode")
+            profiling.mark_on_grad(z, "decode_backward")
+        with profiling.span("model.decode"):
+            linear_output, mu_pr, logvar_pr = self.decoder(z)
+            profiling.mark("decode")
         return {"z": z, "linear_output": linear_output,
                 "mu_pr": mu_pr, "logvar_pr": logvar_pr, **enc}
 

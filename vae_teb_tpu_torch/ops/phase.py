@@ -26,6 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .filterbank import FilterBank, build_filter_bank
 from .phase_reduced import (SUPPORT_THRESHOLD, DevicePlan, apply_reduced,
                             build_reduced_plan)
@@ -470,42 +471,47 @@ class PhaseScattering1D:
         the scattering and both correlation families. Reduced rate: one
         `apply_reduced` computes both families. Exact: the FHR bands of
         every selected pair come from that spectrum once, and both
-        families share one decimation.
+        families share one decimation. Span `frontend.analyze`; the stage
+        mark `scattering` ends the window, the FHR spectrum and the
+        scattering family (`utils.profiling`).
         """
-        if fhr.ndim != 2 or fhr.shape[-1] != self.N:
-            raise ValueError(f"fhr must be (B, {self.N}), got {tuple(fhr.shape)}")
-        if up is not None and up.shape != fhr.shape:
-            raise ValueError("up must match fhr's shape")
-        sel = self.optimal_fhr_selection()
-        if phase_subset is None:
-            phase_subset = sel["phase_selection"]["selected_indices"]
-        if up is None:
-            cross_subset = None
-        elif cross_subset is None:
-            cross_subset = sel["cross_selection"]["selected_indices"]
+        with profiling.span("frontend.analyze"):
+            if fhr.ndim != 2 or fhr.shape[-1] != self.N:
+                raise ValueError(f"fhr must be (B, {self.N}), "
+                                 f"got {tuple(fhr.shape)}")
+            if up is not None and up.shape != fhr.shape:
+                raise ValueError("up must match fhr's shape")
+            sel = self.optimal_fhr_selection()
+            if phase_subset is None:
+                phase_subset = sel["phase_selection"]["selected_indices"]
+            if up is None:
+                cross_subset = None
+            elif cross_subset is None:
+                cross_subset = sel["cross_selection"]["selected_indices"]
 
-        fhr = fhr.to(torch.float32)
-        if up is not None:
-            up = up.to(torch.float32)
-        if self._window is not None:
-            fhr = fhr * self._window
+            fhr = fhr.to(torch.float32)
             if up is not None:
-                up = up * self._window
-        spec_fhr = self._spectrum(fhr)
-        out = {}
-        if compute_scattering:
-            out["scattering"] = self.scattering.scatter_spectrum(spec_fhr)
-        if self.reduced_rate:
-            spec_up = spec_fhr if up is None else self._spectrum(up)
-            pc, cc = apply_reduced(self.plan(phase_subset, cross_subset),
-                                   spec_fhr, spec_up)
-        else:
-            pc, cc = self._analyze_exact(spec_fhr, up, phase_subset,
-                                         cross_subset)
-        out["phase_corr"] = pc
-        if cc is not None:
-            out["cross_phase_corr"] = cc
-        return out
+                up = up.to(torch.float32)
+            if self._window is not None:
+                fhr = fhr * self._window
+                if up is not None:
+                    up = up * self._window
+            spec_fhr = self._spectrum(fhr)
+            out = {}
+            if compute_scattering:
+                out["scattering"] = self.scattering.scatter_spectrum(spec_fhr)
+            profiling.mark("scattering")
+            if self.reduced_rate:
+                spec_up = spec_fhr if up is None else self._spectrum(up)
+                pc, cc = apply_reduced(self.plan(phase_subset, cross_subset),
+                                       spec_fhr, spec_up)
+            else:
+                pc, cc = self._analyze_exact(spec_fhr, up, phase_subset,
+                                             cross_subset)
+            out["phase_corr"] = pc
+            if cc is not None:
+                out["cross_phase_corr"] = cc
+            return out
 
     def _analyze_exact(self, spec_fhr, up, phase_subset, cross_subset):
         """The exact families of `analyze`: the FHR bands both families

@@ -49,6 +49,7 @@ import torch.nn as nn
 from .device import resolve_device
 from .models import SeqVaeTeb
 from .ops import PhaseScattering1D
+from .utils import profiling
 
 TRIM = 30
 
@@ -82,8 +83,11 @@ class WindowFrontend:
                                     cross_subset=self.cross_subset)
         n_out = out["scattering"].shape[-1]
         sl = slice(TRIM, n_out - TRIM)
-        return tuple(out[k][:, :, sl].transpose(1, 2)
-                     for k in ("scattering", "phase_corr", "cross_phase_corr"))
+        coeffs = tuple(out[k][:, :, sl].transpose(1, 2)
+                       for k in ("scattering", "phase_corr",
+                                 "cross_phase_corr"))
+        profiling.mark("correlation")
+        return coeffs
 
 
 class InferenceServer:
@@ -103,14 +107,21 @@ class InferenceServer:
 
     def coefficients(self, fhr, up) -> Tuple[torch.Tensor, ...]:
         """Raw (B, N) windows -> trimmed (y_st, y_ph, x_ph), each (B, S, C)."""
-        return self.frontend(self._tensor(fhr), self._tensor(up))
+        with profiling.span("serve.coefficients"):
+            return self.frontend(self._tensor(fhr), self._tensor(up))
 
     @torch.inference_mode()
     def infer(self, fhr, up) -> Dict[str, torch.Tensor]:
         """Raw FHR and UP windows (B, N) -> the deterministic forward's
         outputs (z, linear_output, mu_pr, logvar_pr, mu_x, mu_prior,
-        logvar_prior, mu_post, logvar_post)."""
-        return self.model(*self.coefficients(fhr, up), deterministic=True)
+        logvar_prior, mu_post, logvar_post).
+
+        The span `serve.infer` covers the call until it returns (the work
+        it enqueued may still run); the request's stage marks start before
+        the windows are copied to the device (`utils.profiling`)."""
+        with profiling.span("serve.infer"), \
+                profiling.stages("request", self.device):
+            return self.model(*self.coefficients(fhr, up), deterministic=True)
 
     @torch.inference_mode()
     def infer_coefficients(self, y_st, y_ph, x_ph) -> Dict[str, torch.Tensor]:

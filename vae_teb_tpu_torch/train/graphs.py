@@ -24,11 +24,12 @@ a graph's scratch memory may be reused by another graph.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import add_launch_counts, launch_counts
+from ..utils import profiling
 
 
 class StepGraph:
@@ -37,25 +38,34 @@ class StepGraph:
     inputs: the flat static buffer the step reads its fields (and eps)
     from, one row of `flat_rows`; out: the (n_metrics,) vector the replay
     writes, `metrics` its names; launches: the wavefront kernel launches
-    one replay makes, by `kernels.launch_counts` key.
+    one replay makes, by `kernels.launch_counts` key; stages: the step's
+    stage marks, recorded into the graph (`utils.profiling.Stages`, or None
+    when the step body opened none), which every replay records again.
     """
 
     def __init__(self, graph: "torch.cuda.CUDAGraph", inputs: torch.Tensor,
                  out: torch.Tensor, metrics: Sequence[str],
-                 launches: Counter):
+                 launches: Counter,
+                 stages: Optional[profiling.Stages] = None):
         self.graph, self.inputs, self.out = graph, inputs, out
         self.metrics = tuple(metrics)
         self.launches = launches
+        self.stages = stages
         self.replays = 0
 
     def replay(self, row: torch.Tensor) -> torch.Tensor:
         """Copy `row` (one step's fields, flattened) into the static
         buffer, replay the step and return a copy of its metrics; all on
         the current stream, with no host synchronisation. The replay's
-        kernel launches are added to the wrappers' counts."""
+        kernel launches are added to the wrappers' counts, and its stage
+        marks become the latest step's (`utils.profiling.snapshot`). The
+        span `graph.launch` covers the launch alone, which waits while
+        the card's queue of work is full."""
         self.inputs.copy_(row)
-        self.graph.replay()
+        with profiling.span("graph.launch"):
+            self.graph.replay()
         add_launch_counts(self.launches)
+        profiling.replayed(self.stages)
         self.replays += 1
         return self.out.clone()
 
@@ -104,4 +114,5 @@ def capture_step(step: Callable[..., Dict[str, torch.Tensor]],
     finally:   # the capture recorded its launches, it made none
         launches = launch_counts() - before
         add_launch_counts(launches, -1)
-    return StepGraph(graph, inputs, out, list(metrics), launches)
+    return StepGraph(graph, inputs, out, list(metrics), launches,
+                     profiling.captured_stages())

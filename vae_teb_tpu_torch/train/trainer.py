@@ -44,6 +44,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.vae_teb import SeqVaeTeb, compute_loss
+from ..utils import profiling
 from .distributed import MeshRunner
 from .graphs import StepGraph, capture_step, flat_rows
 from .schedules import (ClippedAdamW, MultiSteps, beta_schedule,
@@ -264,7 +265,8 @@ class Trainer:
         gradient before clipping.
         """
         self._beta.fill_(beta)
-        metrics = self._step(*self._batch(batch), eps)
+        with profiling.span("trainer.eager_step"):
+            metrics = self._step(*self._batch(batch), eps)
         self.step += 1
         return metrics
 
@@ -272,22 +274,30 @@ class Trainer:
               ) -> Dict[str, torch.Tensor]:
         """The step's device work on the fields as tensors (the body that
         `train.graphs.capture_step` records): everything `train_step` does
-        but count the step."""
-        y_st, y_ph, x_ph, y_raw = self._prep(y_st, y_ph, x_ph, y_raw)
-        model = self.model.train()
-        runner = self.runner
-        with (runner.noise() if runner else contextlib.nullcontext()):
-            out = model(y_st, y_ph, x_ph, deterministic=False,
-                        generator=self.generator, eps=eps)
-        losses = compute_loss(out, y_st, y_ph, y_raw, beta=self._beta)
-        self.optimizer.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
-        if runner:
-            runner.reduce_grads(list(self.model.parameters()))
-        grad_norm = self.optimizer.step()
-        if grad_norm is None:   # a torch.optim optimizer returns no norm
-            grad_norm = global_norm([p.grad for p in self.model.parameters()
-                                     if p.grad is not None])
+        but count the step. Its stage marks (`utils.profiling`): a start,
+        the model's `encode` and `decode`, `decode` again after the loss,
+        `decode_backward`, `encode_backward` at the end of the backward, and
+        `optimizer`."""
+        with profiling.stages("step", self.device):
+            y_st, y_ph, x_ph, y_raw = self._prep(y_st, y_ph, x_ph, y_raw)
+            model = self.model.train()
+            runner = self.runner
+            with (runner.noise() if runner else contextlib.nullcontext()):
+                out = model(y_st, y_ph, x_ph, deterministic=False,
+                            generator=self.generator, eps=eps)
+            losses = compute_loss(out, y_st, y_ph, y_raw, beta=self._beta)
+            profiling.mark("decode")
+            self.optimizer.zero_grad(set_to_none=True)
+            losses["total_loss"].backward()
+            profiling.mark("encode_backward")
+            if runner:
+                runner.reduce_grads(list(self.model.parameters()))
+            grad_norm = self.optimizer.step()
+            if grad_norm is None:   # a torch.optim optimizer returns no norm
+                grad_norm = global_norm([p.grad
+                                         for p in self.model.parameters()
+                                         if p.grad is not None])
+            profiling.mark("optimizer")
         metrics = {k: v.detach() for k, v in losses.items()}
         if runner:
             metrics = runner.mean(metrics)
@@ -324,47 +334,57 @@ class Trainer:
         captured after the group, so the next group replays it. A replay
         computes what the eager step computes, and its kernel launches are
         counted as theirs. Raises under a mesh (`fit` steps one batch at a
-        time there) and for an optimizer a graph cannot replay."""
-        if self.runner is not None:
-            raise ValueError("train_multi_step steps one device: under a mesh "
-                             "fit takes one batch at a time")
-        fields = [torch.as_tensor(stacked_batch[k], dtype=torch.float32,
-                                  device=self.device) for k in FIELDS]
-        K = fields[0].shape[0]
-        if any(f.shape[0] != K for f in fields) or (
-                eps is not None and eps.shape[0] != K):
-            raise ValueError("stacked fields and eps need one leading K")
-        if not self.captures:
-            steps = [self.train_step({k: f[i] for k, f in zip(FIELDS, fields)},
-                                     beta, None if eps is None else eps[i])
-                     for i in range(K)]
-            return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
-        self._check_capturable()
-        self._beta.fill_(beta)
-        if eps is not None:
-            fields.append(torch.as_tensor(eps, dtype=torch.float32,
-                                          device=self.device))
-        shapes = tuple(tuple(f.shape[1:]) for f in fields)
-        rows = flat_rows(fields)
-        out, pending = [], []
-        for i in range(K):
-            key = (shapes, self._micro_step())
-            graph = self.graphs.get(key)
-            if graph is None:
-                metrics = self._step(*(f[i] for f in fields))
-                names = list(metrics)
-                out.append(torch.stack([metrics[k].float() for k in names]))
-                pending.append(key)
-            else:
-                out.append(graph.replay(rows[i]))
-                names = graph.metrics
-                if isinstance(self.optimizer, MultiSteps):
-                    self.optimizer.advance()
-            self.step += 1
-        for key in dict.fromkeys(pending):   # capture runs nothing: the
-            self._capture(key, shapes)       # next group replays it
-        out = torch.stack(out)
-        return {k: out[:, j] for j, k in enumerate(names)}
+        time there) and for an optimizer a graph cannot replay.
+
+        Spans (`utils.profiling`): `trainer.train_multi_step` over the
+        call, and inside it `trainer.eager_step`, `trainer.replay` (copy
+        in, launch, copy out; the launch itself `graph.launch`) and
+        `trainer.capture`."""
+        with profiling.span("trainer.train_multi_step"):
+            if self.runner is not None:
+                raise ValueError("train_multi_step steps one device: under a "
+                                 "mesh fit takes one batch at a time")
+            fields = [torch.as_tensor(stacked_batch[k], dtype=torch.float32,
+                                      device=self.device) for k in FIELDS]
+            K = fields[0].shape[0]
+            if any(f.shape[0] != K for f in fields) or (
+                    eps is not None and eps.shape[0] != K):
+                raise ValueError("stacked fields and eps need one leading K")
+            if not self.captures:
+                steps = [self.train_step(
+                    {k: f[i] for k, f in zip(FIELDS, fields)}, beta,
+                    None if eps is None else eps[i]) for i in range(K)]
+                return {k: torch.stack([m[k] for m in steps])
+                        for k in steps[0]}
+            self._check_capturable()
+            self._beta.fill_(beta)
+            if eps is not None:
+                fields.append(torch.as_tensor(eps, dtype=torch.float32,
+                                              device=self.device))
+            shapes = tuple(tuple(f.shape[1:]) for f in fields)
+            rows = flat_rows(fields)
+            out, pending = [], []
+            for i in range(K):
+                key = (shapes, self._micro_step())
+                graph = self.graphs.get(key)
+                if graph is None:
+                    with profiling.span("trainer.eager_step"):
+                        metrics = self._step(*(f[i] for f in fields))
+                    names = list(metrics)
+                    out.append(torch.stack([metrics[k].float()
+                                            for k in names]))
+                    pending.append(key)
+                else:
+                    with profiling.span("trainer.replay"):
+                        out.append(graph.replay(rows[i]))
+                    names = graph.metrics
+                    if isinstance(self.optimizer, MultiSteps):
+                        self.optimizer.advance()
+                self.step += 1
+            for key in dict.fromkeys(pending):   # capture runs nothing: the
+                self._capture(key, shapes)       # next group replays it
+            out = torch.stack(out)
+            return {k: out[:, j] for j, k in enumerate(names)}
 
     def _micro_step(self) -> int:
         return getattr(self.optimizer, "mini_step", 0)
@@ -379,8 +399,10 @@ class Trainer:
         if isinstance(self.optimizer, MultiSteps):
             self.optimizer.mini_step = key[1]
         try:
-            self.graphs[key] = capture_step(
-                self._step, shapes, self.generator, self._pool, self.device)
+            with profiling.span("trainer.capture"):
+                self.graphs[key] = capture_step(
+                    self._step, shapes, self.generator, self._pool,
+                    self.device)
         finally:
             if isinstance(self.optimizer, MultiSteps):
                 self.optimizer.mini_step = micro
