@@ -12,6 +12,7 @@ in depth groups or with their weights streamed, on an NVIDIA GPU.
     python3 chip_smoke.py --parallel  # phases 1, 2 and 13, printing no result
     python3 chip_smoke.py --capture   # phases 1, 2 and 14, printing no result
     python3 chip_smoke.py --coverage  # phases 1, 2 and 15, printing no result
+    python3 chip_smoke.py --upsample  # phases 1, 2 and 16, printing no result
 
 Run with --kernels, --serve or --grid from a copy placed at the root of
 another checkout, it times that checkout's kernels or serving path (the
@@ -22,8 +23,9 @@ one card.
 Phases, each of which raises on failure (exit code 1):
   1. device: CUDA must be present (exit 2 otherwise, before any result);
   2. build the wavefront kernels (vae_teb_tpu_torch/kernels/wavefront_fwd.cu,
-     wavefront_bwd.cu, wavefront_grid_fwd.cu and wavefront_grid_bwd.cu,
-     one nvcc each, in parallel) for sm_90a; print
+     wavefront_bwd.cu, wavefront_grid_fwd.cu and wavefront_grid_bwd.cu)
+     and the upsample kernels (upsample.cu), one nvcc each, in parallel,
+     for sm_90a; print
      each instantiation's ptxas registers and spills, and the launch plan
      of each main-path batch (rows per cluster, clusters of 8 CTAs, shared
      memory) with the clusters the card holds at once, and the grid plan
@@ -245,7 +247,19 @@ Phases, each of which raises on failure (exit code 1):
      each way, every launch streamed), the encoder LSTMs alone against
      cuDNN, and at 1024 fp32 (c)'s captured step, one replay against
      three eager steps; `--coverage` runs this phase alone;
- 16. print the card's nvidia-smi name and power limit, one JSON line for
+ 16. the decoder's upsample kernels (kernels/upsample.cu): (a) at its
+     four shapes at B=128 in its layout, fp32 and bf16, the forward equal
+     to F.interpolate (fp32) or the plain blends (bf16) bit for bit, the
+     gather equal to the plain gather and to itself across runs, and
+     within 1e-6 (fp32) or 8e-3 (bf16) of max|dx| of float64 autograd;
+     times (a run of 10 launches over 10, median of 15) of the kernels,
+     the plain versions and PyTorch's upsample_linear1d forward and
+     backward, beside the bytes bound; (b)
+     SeqVaeTeb at B=128: 4 launches each way in an eager train step and in
+     a replay of the captured step (4 forward in an eval forward), each
+     upsample kernel's device time in place from the profiler, and no
+     upsample_linear1d kernel; `--upsample` runs this phase alone;
+ 17. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start, the serving forward's launches
      in phase 10, in phase 11 the sessions' and the loaded programs', and
@@ -257,7 +271,8 @@ Phases, each of which raises on failure (exit code 1):
      every phase-12 shape and storage type, `by_shape`; the streamed
      entries' rows at (1+1, 1024), B=32, fp32, launched by phase 15 (d)'s
      model runs and its captured step's replay, with every (d) kernel
-     shape's numbers, `by_shape`), and last {"ok": true, "device":
+     shape's numbers, `by_shape`; the upsample entries' rows with phase
+     16's numbers, `by_shape`, and launches), and last {"ok": true, "device":
      {...}}.
 """
 
@@ -3204,7 +3219,7 @@ _EXACT = ("count", "mini_step", "generator", "step", "first.")
 def _against_eager(runs, label, start, controls=None):
     """C against the eager runs from `start`. The eager steps on the card
     are not deterministic (cuDNN's weight gradient and the backward of
-    the reflect pad and of the linear upsample add with atomics), and a
+    the reflect pad add with atomics), and a
     trajectory carries a step's difference on, so C is held to the eager
     runs' spread: bit for bit in the entries that are deterministic by
     construction (`_EXACT`), and in each group of entries (`_group`; the
@@ -4409,14 +4424,179 @@ def coverage_phase(device):
     return main_path, report
 
 
+# the decoder's four upsamples of SeqVaeTeb, (C, S) in, at B=128
+UPSAMPLE_SHAPES = ((77, 300), (66, 600), (44, 1200), (33, 2400))
+UPSAMPLE_B = 128
+UPSAMPLE_BWD_TOL = {torch.float32: 1e-6, torch.bfloat16: 8e-3}  # of max|dx|
+UPSAMPLE_RUN = 10     # launches a timing in phase 16 (a)
+
+
+def _upsample_bound_ms(C, S, itemsize):
+    """Input read and output written once at 3.35 TB/s, B=128."""
+    return 3 * UPSAMPLE_B * C * S * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def _upsample_kernel_ms(prof):
+    """The device times (ms) of the upsample kernels in a profile, in
+    launch order, as (name, ms), and how many upsample_linear1d kernels
+    it holds."""
+    from vae_teb_tpu_torch.profile_train import _kernels
+    kernels = sorted(_kernels(prof), key=lambda e: e.time_range.start)
+    ours = [("bwd" if "_bwd_" in e.name else "fwd",
+             (e.time_range.end - e.time_range.start) / 1e3)
+            for e in kernels if "upsample_linear2x" in e.name]
+    return ours, sum("upsample_linear1d" in e.name for e in kernels)
+
+
+def upsample_phase(device):
+    """Phase 16: the decoder's upsample kernels (kernels/upsample.cu). (a)
+    At each of the decoder's four shapes at B=128, in its layout (the
+    transposed view of a (B, C, S) tensor), fp32 and bf16: the forward
+    equal to F.interpolate (fp32) or the plain blends (bf16) bit for bit,
+    the gather equal to the plain gather on the card and to itself across
+    runs bit for bit, and within UPSAMPLE_BWD_TOL of float64 autograd;
+    times (CUDA events around UPSAMPLE_RUN launches, over their count,
+    median of 15) of the kernels, the plain versions and PyTorch's
+    upsample_linear1d forward and backward (`library_ms`),
+    beside the bytes bound (input read and output written once at 3.35
+    TB/s). (b) SeqVaeTeb at B=128: the upsample launches of one eval
+    forward, one eager train step and one replay of the captured step, and
+    from the profiler, the forward's and the replay's upsample kernels'
+    device times in place, and no upsample_linear1d kernel. Returns
+    {(way, C, S, dtype): (ms, plain_ms, library_ms, bound_ms)} and (b)'s
+    {"launches": {...}, "forward_ms": [...], "replay_ms": [...]}."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
+                                   init_parameters)
+    from vae_teb_tpu_torch.kernels import (launch_counts,
+                                           upsample_linear2x_bwd,
+                                           upsample_linear2x_bwd_plain,
+                                           upsample_linear2x_fwd,
+                                           upsample_linear2x_fwd_plain)
+    log(f"upsample: card {card()}")
+    gen = torch.Generator(device=device).manual_seed(16)
+    B, out, failed = UPSAMPLE_B, {}, []
+    ncw = lambda t: t.transpose(1, 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, S in UPSAMPLE_SHAPES:
+            x = ncw(torch.randn(B, C, S, generator=gen, device=device).to(
+                dtype))
+            g = ncw(torch.randn(B, C, 2 * S, generator=gen,
+                                device=device).to(dtype))
+            lib_fwd = lambda: F.interpolate(ncw(x), size=2 * S, mode="linear",
+                                            align_corners=False)
+            lib_bwd = lambda: torch.ops.aten.upsample_linear1d_backward(
+                ncw(g), [2 * S], [B, C, S], False)
+            y, dx = upsample_linear2x_fwd(x), upsample_linear2x_bwd(g)
+            want_y = (ncw(lib_fwd()) if dtype == torch.float32
+                      else upsample_linear2x_fwd_plain(x))
+            x64 = x.double().requires_grad_(True)
+            (dx64,) = torch.autograd.grad(
+                F.interpolate(ncw(x64), size=2 * S, mode="linear",
+                              align_corners=False), x64, ncw(g).double())
+            err = ((dx.double() - dx64).abs().max() / dx64.abs().max()).item()
+            label = f"upsample (a) ({C}, {S}) {str(dtype)[6:]}"
+            if not (torch.equal(y, want_y) and ncw(y).is_contiguous()):
+                failed.append(f"{label}: forward differs from the "
+                              "library (fp32) or plain (bf16) one in "
+                              f"{(y != want_y).sum().item()} outputs, or "
+                              "not in the input's layout")
+            if not torch.equal(dx, upsample_linear2x_bwd_plain(g)):
+                failed.append(f"{label}: gather differs from the plain one")
+            if not torch.equal(dx, upsample_linear2x_bwd(g)):
+                failed.append(f"{label}: gather differs between two runs")
+            if err > UPSAMPLE_BWD_TOL[dtype]:
+                failed.append(f"{label}: gather {err:.3g} of max from "
+                              "float64 autograd")
+            bound_ms = _upsample_bound_ms(C, S, x.element_size())
+            for way, kernel, plain, lib in (
+                    ("fwd", lambda: upsample_linear2x_fwd(x),
+                     lambda: upsample_linear2x_fwd_plain(x), lib_fwd),
+                    ("bwd", lambda: upsample_linear2x_bwd(g),
+                     lambda: upsample_linear2x_bwd_plain(g), lib_bwd)):
+                # a run of launches a timing, so that the host's launch
+                # latency hides behind the queue as it does in a step
+                ms, plain_ms, library_ms = (
+                    cuda_time_ms(lambda: [f() for _ in range(UPSAMPLE_RUN)])
+                    / UPSAMPLE_RUN for f in (kernel, plain, lib))
+                out[(way, C, S, dtype)] = (ms, plain_ms, library_ms, bound_ms)
+                log(f"{label} {way}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                    f" ms, library {library_ms:.4f} ms, bound {bound_ms:.4f}"
+                    f" ms, share of bound {100 * bound_ms / ms:.1f}%" + (
+                        f", gather {err:.3g} of max from float64"
+                        if way == "bwd" else ""))
+            del x, g, y, dx, want_y, x64, dx64
+    # (b) the main path at B=128: serving forward, eager step, replay
+    model = init_parameters(SeqVaeTeb(), seed=INIT_SEED).to(device)
+    keys = (("upsample_linear2x_fwd", "upsample_linear2x_fwd_f32"),
+            ("upsample_linear2x_bwd", "upsample_linear2x_bwd_f32"))
+    widths = {"fhr_st": 43, "fhr_ph": 44, "fhr_up_ph": 130, "fhr": None}
+    batch = lambda: {f: torch.randn((1, B, 300, c) if c else (1, B, 4800),
+                                    generator=gen, device=device)
+                     for f, c in widths.items()}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    launches, library = {}, 0
+
+    def counted(name, fn):
+        nonlocal library
+        before = launch_counts()
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches[name] = [(launch_counts() - before)[k] for k in keys]
+        ours, lib = _upsample_kernel_ms(prof)
+        library += lib
+        return [ms for _, ms in ours]
+
+    fields = batch()
+    with torch.inference_mode():
+        forward_ms = counted("forward", lambda: model.eval()(
+            *(fields[f][0] for f in ("fhr_st", "fhr_ph", "fhr_up_ph"))))
+    trainer = Trainer(model.train(), TrainerConfig(steps_per_execution=1),
+                      device)
+    counted("train_step",   # eager, then captured
+            lambda: trainer.train_multi_step(batch(), 1e-5))
+    replay_ms = counted("captured_replay",
+                        lambda: trainer.train_multi_step(batch(), 1e-5))
+    (graph,) = trainer.graphs.values()
+    # in launch order: the forward's shapes, then the backward's reversed
+    shapes = list(UPSAMPLE_SHAPES) + list(UPSAMPLE_SHAPES[::-1])
+    for name, times in (("forward", forward_ms), ("replay", replay_ms)):
+        for (C, S), ms in zip(shapes, times):
+            bound = _upsample_bound_ms(C, S, 4)
+            log(f"upsample (b) {name}, ({C}, {S}): {ms:.4f} ms in place, "
+                f"share of bound {100 * bound / ms:.1f}%")
+    log(f"upsample (b) B=128 launches (fwd, bwd): {launches}; upsample "
+        f"device time: serving forward {sum(forward_ms):.4f} ms, replay "
+        f"{sum(replay_ms):.4f} ms; {library} upsample_linear1d kernels")
+    want = {"forward": [4, 0], "train_step": [4, 4],
+            "captured_replay": [4, 4]}
+    if launches != want or graph.replays != 1 or library:
+        failed.append(f"upsample (b): launches {launches}, expected {want};"
+                      f" {graph.replays} replays; {library} "
+                      "upsample_linear1d kernels")
+    if len(forward_ms) != 4 or len(replay_ms) != 8:
+        failed.append(f"upsample (b): {len(forward_ms)} / {len(replay_ms)} "
+                      "upsample kernels in the profiles, expected 4 / 8")
+    if failed:
+        raise AssertionError("phase 16 checks failed:\n" + "\n".join(failed))
+    return out, {"launches": launches, "forward_ms": forward_ms,
+                 "replay_ms": replay_ms}
+
+
 def main(argv) -> int:
     kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
     grid_only, parallel_only = argv == ["--grid"], argv == ["--parallel"]
     capture_only, coverage_only = argv == ["--capture"], argv == ["--coverage"]
+    upsample_only = argv == ["--upsample"]
     if argv and not (kernels_only or serve_only or grid_only
-                     or parallel_only or capture_only or coverage_only):
+                     or parallel_only or capture_only or coverage_only
+                     or upsample_only):
         print("usage: chip_smoke.py [--kernels | --serve | --grid | "
-              "--parallel | --capture | --coverage]", file=sys.stderr)
+              "--parallel | --capture | --coverage | --upsample]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4430,7 +4610,7 @@ def main(argv) -> int:
 
     from vae_teb_tpu_torch.kernels import build
     sources = ("wavefront_fwd.cu", "wavefront_bwd.cu", "wavefront_grid_fwd.cu",
-               "wavefront_grid_bwd.cu")
+               "wavefront_grid_bwd.cu", "upsample.cu")
     t0 = time.perf_counter()
     build.load_all(sources)
     log(f"built {', '.join(sources)} in parallel in "
@@ -4458,6 +4638,9 @@ def main(argv) -> int:
     if coverage_only:         # phase 15 alone
         coverage_phase(device)
         return 0
+    if upsample_only:         # phase 16 alone
+        upsample_phase(device)
+        return 0
     check_residency(device)
 
     kernels = check_kernels(device)
@@ -4476,6 +4659,7 @@ def main(argv) -> int:
     parallel_launches = parallel_phase(device)
     captured = capture_phase(device)
     coverage, cov_report = coverage_phase(device)
+    upsample, upsample_main = upsample_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -4594,6 +4778,18 @@ def main(argv) -> int:
                 f"{'+'.join(map(str, d))} layers H={h} {str(dt)[6:]}": ms
                 for (k, d, h, dt), ms in cov_report["stream_floor"].items()
                 if k == key}})
+    # the decoder's upsample kernels, which replace no TPU kernel: each
+    # shape's numbers at B=128, the main path's launches at B=128
+    for way in ("fwd", "bwd"):
+        rows.append({
+            "name": f"upsample_linear2x_{way}", "route": "cuda",
+            "source": "vae_teb_tpu_torch/kernels/upsample.cu",
+            "replaces": None, **upsample_main,
+            "by_shape": {f"({C}, {S}) {str(dt)[6:]}": dict(zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms"),
+                upsample[(way, C, S, dt)]))
+                for C, S in UPSAMPLE_SHAPES
+                for dt in (torch.float32, torch.bfloat16)}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

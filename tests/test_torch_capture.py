@@ -409,11 +409,11 @@ def test_captured_steps_match_eager_on_card(cuda_device, hidden):
     as two groups of 2 (the second group replays the captured step; H=128
     takes the grid kernels, whose cooperative launch the graph records).
     The backward on the card is not deterministic (atomic adds in cuDNN's
-    weight gradient and in the reflect pad's and linear upsample's
-    backward: two eager steps from one state differ in most gradient
-    leaves), so the captured run is held as chip_smoke.py's phase 14 holds
-    it (`_assert_like_eager`). The replays launched the wavefront kernels
-    once a step each."""
+    weight gradient and in the reflect pad's backward: two eager steps
+    from one state differ in most gradient leaves), so the captured run is
+    held as chip_smoke.py's phase 14 holds it (`_assert_like_eager`). The
+    replays launched the wavefront kernels once a step each, and the
+    decoder's upsample kernels four times each way."""
     from vae_teb_tpu_torch.kernels import launch_counts
     model = init_parameters(SeqVaeTeb(lstm_hidden_dim=hidden,
                                       lstm_num_layers=2, seq_len=S), seed=1)
@@ -430,10 +430,16 @@ def test_captured_steps_match_eager_on_card(cuda_device, hidden):
     prefix = "wavefront_grid_" if hidden == 128 else "wavefront_"
     res, bwd = (("wavefront_fwd", f"{prefix}fwd_res_f32"),
                 ("wavefront_bwd", f"{prefix}bwd_f32"))
+    up, up_bwd = (("upsample_linear2x_fwd", "upsample_linear2x_fwd_f32"),
+                  ("upsample_linear2x_bwd", "upsample_linear2x_bwd_f32"))
     assert graph.launches == {res: 1, bwd: 1,
                               ("wavefront_fwd", "residual_launches"): 1,
-                              ("wavefront_bwd", "launches"): 1}
+                              ("wavefront_bwd", "launches"): 1,
+                              up: 4, up_bwd: 4,
+                              ("upsample_linear2x_fwd", "launches"): 4,
+                              ("upsample_linear2x_bwd", "launches"): 4}
     assert launched[res] == launched[bwd] == 24   # 6 runs of 4 steps
+    assert launched[up] == launched[up_bwd] == 96
 
 
 @pytest.mark.cuda

@@ -1,14 +1,22 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-Importing this package registers the operator
-`vae_teb_tpu_torch::wavefront_fwd`, which exported programs call."""
+Importing this package registers the operators
+`vae_teb_tpu_torch::wavefront_fwd` and `vae_teb_tpu_torch::upsample_linear2x`,
+which exported programs call."""
 
-from .wavefront import (WavefrontFunction, add_launch_counts, launch_counts,
-                        wavefront_bwd, wavefront_fwd, wavefront_fwd_op,
-                        wavefront_recurrence)
+from .launches import add_launch_counts, launch_counts
+from .upsample import (LinearUpsampleFunction, linear_upsample,
+                       upsample_linear2x_bwd, upsample_linear2x_bwd_plain,
+                       upsample_linear2x_fwd, upsample_linear2x_fwd_plain,
+                       upsample_linear2x_op)
+from .wavefront import (WavefrontFunction, wavefront_bwd, wavefront_fwd,
+                        wavefront_fwd_op, wavefront_recurrence)
 from .wavefront_ref import wavefront_bwd_plain, wavefront_fwd_plain
 
-__all__ = ["WavefrontFunction", "add_launch_counts", "launch_counts",
+__all__ = ["LinearUpsampleFunction", "WavefrontFunction", "add_launch_counts",
+           "launch_counts", "linear_upsample", "upsample_linear2x_bwd",
+           "upsample_linear2x_bwd_plain", "upsample_linear2x_fwd",
+           "upsample_linear2x_fwd_plain", "upsample_linear2x_op",
            "wavefront_bwd", "wavefront_bwd_plain",
            "wavefront_fwd", "wavefront_fwd_op", "wavefront_fwd_plain",
            "wavefront_recurrence"]

@@ -58,8 +58,8 @@ zeroed on the stream, which the graph replays; the launchers'
 cudaFuncSetAttribute
 is accepted during a capture, and the cluster-dimension and cooperative
 launch attributes are recorded with the kernel node (an H100, torch
-2.11.0+cu128, CUDA 12.8). `launch_counts` and `add_launch_counts` let a
-graph count its replays' launches.
+2.11.0+cu128, CUDA 12.8). `launches.launch_counts` and
+`launches.add_launch_counts` let a graph count its replays' launches.
 
 `wavefront_recurrence` is the differentiable recurrence the model calls:
 the serving forward alone (the operator) when no gradient is wanted,
@@ -72,12 +72,12 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from collections import Counter
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
+from .launches import counted
 from .wavefront_ref import wavefront_bwd_plain, wavefront_fwd_plain
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -922,6 +922,7 @@ def _wavefront_fwd_fake(W_eff, b_packed, xs_wave, h0, c0, lvec, S):
     return new(K, B, G // 4), new(B, G // 4), new(B, G // 4)
 
 
+@counted("launches", "residual_launches")
 def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
                   xs_wave: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
                   lvec: torch.Tensor, S: int, with_residuals: bool = False
@@ -946,11 +947,7 @@ def wavefront_fwd(W_eff: torch.Tensor, b_packed: torch.Tensor,
     return _fwd_cuda(W_eff, b_packed, xs_wave, h0, c0, lvec, S, True)
 
 
-wavefront_fwd.launches = 0
-wavefront_fwd.residual_launches = 0
-wavefront_fwd.entry_launches = Counter()
-
-
+@counted("launches")
 def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
                   c_seq: torch.Tensor, c_prev_seq: torch.Tensor,
                   dY: torch.Tensor, dh0: torch.Tensor, dc0: torch.Tensor,
@@ -988,38 +985,6 @@ def wavefront_bwd(W_eff: torch.Tensor, gates_seq: torch.Tensor,
     wavefront_bwd.launches += 1
     wavefront_bwd.entry_launches[entry] += 1
     return dgates_seq, dh_fin, dc_fin
-
-
-wavefront_bwd.launches = 0
-wavefront_bwd.entry_launches = Counter()
-
-
-def launch_counts() -> Counter:
-    """A snapshot of the wrappers' launch counts: (wrapper, count name) for
-    the totals, (wrapper, entry point) for `entry_launches`."""
-    counts = Counter({("wavefront_fwd", "launches"): wavefront_fwd.launches,
-                      ("wavefront_fwd", "residual_launches"):
-                          wavefront_fwd.residual_launches,
-                      ("wavefront_bwd", "launches"): wavefront_bwd.launches})
-    for fn in (wavefront_fwd, wavefront_bwd):
-        counts.update({(fn.__name__, e): n
-                       for e, n in fn.entry_launches.items()})
-    return counts
-
-
-def add_launch_counts(delta: Counter, times: int = 1) -> None:
-    """Add `times` x `delta` (a difference of two `launch_counts()`) to the
-    counts. A CUDA graph's capture records its kernels without launching
-    them, and each replay launches them again without a Python call: the
-    capture takes back what its wrapper calls counted (times=-1), and every
-    replay adds it (`train.graphs.StepGraph`)."""
-    for (name, key), n in delta.items():
-        fn = {"wavefront_fwd": wavefront_fwd, "wavefront_bwd": wavefront_bwd
-              }[name]
-        if key in ("launches", "residual_launches"):
-            setattr(fn, key, getattr(fn, key) + times * n)
-        else:
-            fn.entry_launches[key] += times * n
 
 
 class WavefrontFunction(torch.autograd.Function):

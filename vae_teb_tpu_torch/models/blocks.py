@@ -42,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import wavefront as _wavefront
-from ..kernels import wavefront_recurrence
+from ..kernels import linear_upsample, wavefront_recurrence
 from ..parallel.collectives import all_reduce_sum, copy_to_group, gather_columns
 
 LAYER_NORM_EPS = 1e-6   # flax nn.LayerNorm default
@@ -85,26 +85,6 @@ def geometric_schedule(input_size: int, output_size: int, n_hidden: int
         cur *= r
     sizes.append(output_size)
     return tuple(sizes)
-
-
-def linear_upsample(x: torch.Tensor) -> torch.Tensor:
-    """Linear 2x upsampling of (B, S, C) along S with half-pixel centres
-    (the JAX package's `jax.image.resize(method="linear")`): output 2i
-    blends x[i-1] and x[i] by 1/4 and 3/4, output 2i+1 x[i] and x[i+1],
-    the edges clamped. Below float32 the blends are written out, in
-    float32 and rounded once, which is bit for bit what F.interpolate
-    computes; their backward needs no atomic adds, where the backward of
-    F.interpolate on a bf16 CUDA tensor accumulates with them (71 ms a
-    step at B=128 on an H100, against 10 ms in float32)."""
-    if x.dtype == torch.float32:
-        y = F.interpolate(x.transpose(1, 2), size=x.shape[1] * 2,
-                          mode="linear", align_corners=False)
-        return y.transpose(1, 2)
-    xf = x.float()
-    prev = torch.cat([xf[:, :1], xf[:, :-1]], dim=1)
-    nxt = torch.cat([xf[:, 1:], xf[:, -1:]], dim=1)
-    y = torch.stack([0.25 * prev + 0.75 * xf, 0.75 * xf + 0.25 * nxt], dim=2)
-    return y.reshape(x.shape[0], 2 * x.shape[1], x.shape[2]).to(x.dtype)
 
 
 Dtype = Optional[torch.dtype]
