@@ -293,13 +293,15 @@ def test_config_matches_jax(tmp_path):
     field, on every field the two share: all of them but the trainer's
     donate_state and log_every, which the port does not have (the
     trainer's precision maps to torch.bfloat16 where the JAX package's
-    maps to jnp.bfloat16), with and without a root; save_config
-    round-trips."""
+    maps to jnp.bfloat16), and the model's family, which the JAX package
+    does not have (the port's default, SeqVaeTeb, where the file names
+    none), with and without a root; save_config round-trips."""
     path = os.path.join(REPO, "configs", "default.yaml")
     for root in (None, str(tmp_path)):
         got = dataclasses.asdict(load_config(path, root=root))
         want = dataclasses.asdict(jax_load_config(path, root=root))
         trainer, jax_trainer = got.pop("trainer"), want.pop("trainer")
+        assert got["model"].pop("family") == "seqvae_teb"
         assert got == want
         assert set(jax_trainer) - set(trainer) == {"donate_state", "log_every"}
         assert trainer == {k: jax_trainer[k] for k in trainer}

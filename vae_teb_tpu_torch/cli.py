@@ -54,21 +54,29 @@ from .device import resolve_device
 
 
 def make_model(cfg, seq_len: int):
-    """SeqVaeTeb from `cfg.model` at the config's precision, for sequences
-    of `seq_len` steps (the port sizes the decoder heads at construction).
-    Every `lstm_schedule` runs the wavefront kernels."""
-    from .models import SeqVaeTeb
-    from .train.config import LSTM_SCHEDULES
+    """The model family `cfg.model.family` names, SeqVaeTeb by default or
+    SeqVaeTebForecast (the direct decoder, its 480-sample horizon and the
+    config's `warmup_period`), at the config's precision, for sequences of
+    `seq_len` steps (the port sizes SeqVaeTeb's decoder heads at
+    construction). Every `lstm_schedule` runs the wavefront kernels."""
+    from .models import SeqVaeTeb, SeqVaeTebForecast
+    from .train.config import LSTM_SCHEDULES, MODEL_FAMILIES
     m = cfg.model
     if m.lstm_schedule not in LSTM_SCHEDULES:
         raise ValueError(f"unknown lstm_schedule {m.lstm_schedule!r}")
-    return SeqVaeTeb(input_channels=m.input_channels,
-                     n_scattering=m.n_scattering, n_phase=m.n_phase,
-                     seq_len=seq_len, dtype=cfg.trainer.model_dtype(),
-                     latent_dim_source=m.latent_dim_source,
-                     latent_dim_target=m.latent_dim_target,
-                     latent_dim_z=m.latent_dim_z,
-                     decimation_factor=m.decimation_factor)
+    if m.family not in MODEL_FAMILIES:
+        raise ValueError(f"unknown model family {m.family!r}; one of "
+                         f"{MODEL_FAMILIES}")
+    kwargs = dict(input_channels=m.input_channels,
+                  n_scattering=m.n_scattering, n_phase=m.n_phase,
+                  seq_len=seq_len, dtype=cfg.trainer.model_dtype(),
+                  latent_dim_source=m.latent_dim_source,
+                  latent_dim_target=m.latent_dim_target,
+                  latent_dim_z=m.latent_dim_z,
+                  decimation_factor=m.decimation_factor)
+    if m.family == "seqvae_teb_forecast":
+        return SeqVaeTebForecast(warmup_period=m.warmup_period, **kwargs)
+    return SeqVaeTeb(**kwargs)
 
 
 def _loaders(cfg, split: str, raw: bool = False):
@@ -105,14 +113,15 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
     """Train as `cli train` does; returns the Trainer.
 
     Builds the loaders (raw layout when `normalize_stats` is given: the
-    trainer then normalizes on the device), the model from `cfg.model` at
+    trainer then normalizes on the device), the model family
+    `cfg.model.family` (`make_model`) at
     `cfg.trainer.precision` with seeded weights (`init_parameters`, seed
     `cfg.trainer.seed`), the trainer, the checkpointer (best
     `cfg.checkpoints.keep` plus the latest, in <run dir>/model_checkpoints)
     and the callbacks (history pickle, loss curves, device-memory monitor,
-    and every `plot_every` epochs, 0 never, reconstructions of two
-    validation windows; the plots need matplotlib and are logged and
-    skipped without it). `resume`
+    and, for SeqVaeTeb, every `plot_every` epochs, 0 never,
+    reconstructions of two validation windows; the plots need matplotlib
+    and are logged and skipped without it). `resume`
     (True: this run's checkpoint directory; or a directory) restores the
     latest checkpoint and the history, and continues from the epoch after
     it. Then `Trainer.fit` over cfg.trainer.epochs.
@@ -193,7 +202,7 @@ def run_training(cfg, device=None, resume: Union[bool, str] = False,
         log.info("no reconstruction figures under tensor parallelism: the "
                  "forward is a collective of the model group")
     if (not rank and not tensor_parallel and val_ds is not None
-            and len(val_ds) and plot_every > 0):
+            and len(val_ds) and plot_every > 0 and model.raw_decoder):
         plot_batch = val_ds.read_batch(range(min(2, len(val_ds))))
         if raw:
             # the plot callback feeds the model directly: normalize and
@@ -452,7 +461,8 @@ def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(prog="vae_teb_tpu_torch",
                                 description=__doc__.split("\n")[0])
     sub = p.add_subparsers(dest="command", required=True)
-    pt = sub.add_parser("train", help="train the SeqVaeTeb model")
+    pt = sub.add_parser("train", help="train the model family the config's "
+                        "model.family names (SeqVaeTeb by default)")
     pt.add_argument("--config", required=True)
     pt.add_argument("--root", default=None,
                     help="root for relative dataset paths")

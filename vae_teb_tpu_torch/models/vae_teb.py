@@ -425,7 +425,8 @@ class SeqVaeTeb(nn.Module):
     Subclasses that decode z otherwise (the forecast and predict-st
     families, `models.variants`) set `raw_decoder = False`: they carry no
     `Decoder`, as flax never creates the parameters of a submodule it
-    does not call.
+    does not call. Each family owns its training loss (`loss`), which
+    the trainer calls.
     """
 
     raw_decoder = True
@@ -441,6 +442,7 @@ class SeqVaeTeb(nn.Module):
         self.dtype = dtype
         self.latent_dim_z = latent_dim_z
         self.n_scattering, self.n_phase = n_scattering, n_phase
+        self.decimation_factor = decimation_factor
         self.recurrence: Callable = wavefront_recurrence
         self.source_encoder = SourceEncoder(input_channels, lstm_hidden_dim,
                                             lstm_num_layers, dtype,
@@ -493,6 +495,13 @@ class SeqVaeTeb(nn.Module):
             profiling.mark("decode")
         return {"z": z, "linear_output": linear_output,
                 "mu_pr": mu_pr, "logvar_pr": logvar_pr, **enc}
+
+    def loss(self, outputs: Dict, y_st, y_ph, y_raw, beta) -> Dict:
+        """The family's training loss on its forward's `outputs`, the one
+        signature `train.Trainer` calls for every family: a dict holding
+        `total_loss`. SeqVaeTeb's is `compute_loss` (reconstruction +
+        beta * KL); `beta` may be a 0-dim device tensor."""
+        return compute_loss(outputs, y_st, y_ph, y_raw, beta=beta)
 
     def decode(self, z):
         """The decoder alone (latent interpolation): z (B, S, latent_dim_z)

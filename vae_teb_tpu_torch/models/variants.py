@@ -20,8 +20,10 @@ carry: flax never creates its parameters there). The decoders' LSTMs are
 on the grid kernels (`kernels/wavefront_grid_*.cu`), one launch per
 forward and one per backward, beside the encoders' cluster launch.
 
-The losses gather windows with static index tables built in numpy and run
-their arithmetic in float32.
+The losses run their arithmetic in float32. The sliding-window NLL takes
+its windows as a strided view of the raw signal (`unfold`), with no index
+table; the coefficient windows of predict-st are gathered with a static
+index table built in numpy.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import wavefront_recurrence
+from ..utils import profiling
 from .blocks import (LSTM, CausalConvBlock, Dense, Dtype, ReflectConvBlock,
                      ResidualMLP, geometric_schedule, gelu, run_lstm_streams)
 from .vae_teb import LATENT_DIM, SeqVaeTeb, _f32, gaussian_kld, sample_z
@@ -55,19 +58,19 @@ def sliding_window_nll(mu: torch.Tensor, logvar: torch.Tensor,
     mu/logvar: (B, S, H); target_raw: (B, L). Step t predicts raw samples
     [t*dec, t*dec + H); steps before warmup or overflowing L are skipped,
     and the NLL is the mean over every kept (batch, step, sample). 0 when
-    no step is kept.
+    no step is kept. The windows are a strided view of the signal
+    (`unfold`) and the kept steps a slice: no index table, so nothing is
+    copied from the host and a CUDA graph of a train step holds it.
     """
-    b, s, h = mu.shape
+    s, h = mu.shape[1], mu.shape[2]
     length = target_raw.shape[1]
-    t_idx = np.arange(s)
-    valid = (t_idx >= warmup_period) & (t_idx * decimation_factor + h <= length)
-    tv = t_idx[valid]
-    if tv.size == 0:
+    t0 = max(warmup_period, 0)
+    t1 = min(s, (length - h) // decimation_factor + 1) if length >= h else 0
+    if t1 <= t0:
         return torch.zeros((), dtype=torch.float32, device=mu.device)
-    gather = tv[:, None] * decimation_factor + np.arange(h)[None, :]  # (T, H)
-    windows = _f32(target_raw)[:, _index(gather, mu)]              # (B, T, H)
-    mu_v = _f32(mu)[:, _index(tv, mu)]
-    lv_v = _f32(logvar)[:, _index(tv, mu)]
+    windows = _f32(target_raw).unfold(1, h, decimation_factor)[:, t0:t1]
+    mu_v = _f32(mu)[:, t0:t1]
+    lv_v = _f32(logvar)[:, t0:t1]
     nll = 0.5 * (lv_v + (windows - mu_v) ** 2 / torch.exp(lv_v))
     return nll.mean()
 
@@ -145,7 +148,8 @@ class DirectWindowDecoder(nn.Module):
     """z -> per-timestep (mu, logvar) of the future raw window: an MLP, a
     3-layer LSTM(hidden) and six causal convs (k = 3 .. 29) in parallel,
     summed, then a processor MLP and the window heads; logvar clipped to
-    [-8, 8]."""
+    [-8, 8]. Stage marks (`utils.profiling`): `window_paths` once the
+    three paths are summed, `window_heads` once both heads have run."""
 
     def __init__(self, latent_dim: int = LATENT_DIM,
                  prediction_horizon: int = 480, hidden: int = 256,
@@ -175,9 +179,12 @@ class DirectWindowDecoder(nn.Module):
         x_conv = z
         for i in range(len(DIRECT_CONV_KERNELS)):
             x_conv = getattr(self, f"conv_{i}")(x_conv)
-        x = self.final_processor(self.linear(z) + x_lstm + x_conv)
-        return (self.output_mu(x),
-                torch.clamp(self.output_logvar(x), -8.0, 8.0))
+        x = self.linear(z) + x_lstm + x_conv
+        profiling.mark("window_paths")
+        x = self.final_processor(x)
+        mu, logvar = self.output_mu(x), self.output_logvar(x)
+        profiling.mark("window_heads")
+        return mu, torch.clamp(logvar, -8.0, 8.0)
 
 
 # (features, kernel, 2x upsample) of the conv-window decoder's shared stack
@@ -294,16 +301,19 @@ class PredictStDecoder(nn.Module):
 class SeqVaeTebForecast(SeqVaeTeb):
     """SeqVaeTeb with a future-window forecaster in place of the decoder:
     decoder_type "direct" (DirectWindowDecoder) or "conv_window"
-    (ConvWindowDecoder). Loss: sliding-window NLL + beta * KL. Other
-    arguments as SeqVaeTeb's (`seq_len` and `decimation_factor` size
-    nothing here)."""
+    (ConvWindowDecoder). Loss (`loss`): sliding-window NLL over the steps
+    from `warmup_period` on, each step's window `decimation_factor` raw
+    samples after the last, + beta * KL. Other arguments as SeqVaeTeb's
+    (`seq_len` sizes nothing here)."""
 
     raw_decoder = False
 
     def __init__(self, decoder_type: str = "direct",
-                 prediction_horizon: int = 480, **kwargs):
+                 prediction_horizon: int = 480, warmup_period: int = 30,
+                 **kwargs):
         super().__init__(**kwargs)
         self.decoder_type = decoder_type
+        self.warmup_period = warmup_period
         if decoder_type == "direct":
             self.window_decoder = DirectWindowDecoder(
                 self.latent_dim_z, prediction_horizon, dtype=self.dtype)
@@ -318,11 +328,25 @@ class SeqVaeTebForecast(SeqVaeTeb):
                 eps: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """As SeqVaeTeb.forward, with the window decoder: {z, window_mu,
-        window_logvar (B, S, H), and the encodings}."""
-        enc = self.encode(y_st, y_ph, x_ph)
-        z = sample_z(enc, deterministic, generator, eps)
-        mu_w, logvar_w = self.window_decoder(z, self.recurrence)
+        window_logvar (B, S, H), and the encodings}. Spans and stage marks
+        as SeqVaeTeb.forward's (`model.encode`, `model.decode`; `encode`,
+        `decode`, `decode_backward`), and the direct decoder's own
+        (`window_paths`, `window_heads`)."""
+        with profiling.span("model.encode"):
+            enc = self.encode(y_st, y_ph, x_ph)
+            z = sample_z(enc, deterministic, generator, eps)
+            profiling.mark("encode")
+            profiling.mark_on_grad(z, "decode_backward")
+        with profiling.span("model.decode"):
+            mu_w, logvar_w = self.window_decoder(z, self.recurrence)
+            profiling.mark("decode")
         return {"z": z, "window_mu": mu_w, "window_logvar": logvar_w, **enc}
+
+    def loss(self, outputs: Dict, y_st, y_ph, y_raw, beta) -> Dict:
+        """The training loss `train.Trainer` calls: `compute_loss` with the
+        model's warmup and decimation."""
+        return self.compute_loss(outputs, y_raw, beta, self.warmup_period,
+                                 self.decimation_factor)
 
     @staticmethod
     def compute_loss(outputs: Dict, y_raw, beta: float = 1.0,
@@ -339,13 +363,15 @@ class SeqVaeTebForecast(SeqVaeTeb):
 
 class SeqVaeTebPredictSt(SeqVaeTeb):
     """SeqVaeTeb predicting future scattering and phase coefficients
-    (PredictStDecoder) instead of the raw signal. Other arguments as
-    SeqVaeTeb's."""
+    (PredictStDecoder) instead of the raw signal; its loss (`loss`) skips
+    the steps before `warmup_period`. Other arguments as SeqVaeTeb's."""
 
     raw_decoder = False
 
-    def __init__(self, prediction_horizon: int = 30, **kwargs):
+    def __init__(self, prediction_horizon: int = 30, warmup_period: int = 30,
+                 **kwargs):
         super().__init__(**kwargs)
+        self.warmup_period = warmup_period
         self.st_decoder = PredictStDecoder(
             self.latent_dim_z, prediction_horizon, self.n_scattering,
             self.n_phase, dtype=self.dtype)
@@ -359,6 +385,12 @@ class SeqVaeTebPredictSt(SeqVaeTeb):
         enc = self.encode(y_st, y_ph, x_ph)
         z = sample_z(enc, deterministic, generator, eps)
         return {"z": z, **self.st_decoder(z, self.recurrence), **enc}
+
+    def loss(self, outputs: Dict, y_st, y_ph, y_raw, beta) -> Dict:
+        """The training loss `train.Trainer` calls: `compute_loss` with the
+        model's warmup."""
+        return self.compute_loss(outputs, y_st, y_ph, beta,
+                                 self.warmup_period)
 
     @staticmethod
     def compute_loss(outputs: Dict, y_st, y_ph, beta: float = 1.0,

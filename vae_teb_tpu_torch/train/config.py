@@ -5,6 +5,8 @@ defaults, over the port's `TrainerConfig`, so a config file of the JAX
 package loads unchanged. `yaml` is imported inside `load_config` and
 `save_config`; without PyYAML a `RunConfig` is built in code.
 
+`ModelConfig.family` is the port's own: the model family `cli train`
+builds, SeqVaeTeb by default.
 `ModelConfig.lstm_schedule` is read, but the port has one LSTM schedule:
 "stacked", "wavefront" and "wavefront_pallas" all run the wavefront CUDA
 kernels (the same staircase recurrence as the JAX package's wavefront
@@ -24,8 +26,14 @@ from .trainer import TrainerConfig
 LSTM_SCHEDULES = ("stacked", "wavefront", "wavefront_pallas")
 
 
+MODEL_FAMILIES = ("seqvae_teb", "seqvae_teb_forecast")
+
+
 @dataclass
 class ModelConfig:
+    # which model `cli train` builds: one of MODEL_FAMILIES (SeqVaeTeb, or
+    # SeqVaeTebForecast with its published direct decoder)
+    family: str = "seqvae_teb"
     latent_dim_source: int = 32
     latent_dim_target: int = 32
     latent_dim_z: int = 32

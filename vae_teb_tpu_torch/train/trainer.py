@@ -1,4 +1,4 @@
-"""The training step and loop of SeqVaeTeb.
+"""The training step and loop of SeqVaeTeb and its families.
 
 Port of `vae_teb_tpu.train.trainer`: `TrainerConfig`, `Trainer.train_step`
 / `eval_step` (forward, ELBO, backward, clipped AdamW) and `Trainer.fit`
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.vae_teb import SeqVaeTeb, compute_loss
+from ..models.vae_teb import SeqVaeTeb
 from ..utils import profiling
 from .distributed import MeshRunner
 from .graphs import StepGraph, capture_step, flat_rows
@@ -127,7 +127,10 @@ def _groups(batches: Iterable[Mapping], k: int) -> Iterator[list]:
 class Trainer:
     """Train and eval steps, and the epoch loop, for a SeqVaeTeb on one
     device: the CUDA card unless `device` names another (`device="cpu"`);
-    the model moves there.
+    the model moves there. Any family of `models` trains here (SeqVaeTeb,
+    `SeqVaeTebForecast`, `SeqVaeTebPredictSt`): the steps take the loss
+    from the model (`model.loss(outputs, y_st, y_ph, y_raw, beta)`), and
+    the metrics they return are that loss's terms.
 
     With a `mesh` (`parallel.data_parallel_mesh` / `hybrid_mesh`) the
     trainer is one rank of a data- or tensor-parallel run, on the mesh's
@@ -260,9 +263,10 @@ class Trainer:
 
         The forward runs in training mode (batch statistics) with z sampled
         from `self.generator`, or from the caller's standard-normal `eps`
-        (B, S, latent) when given. Returns 0-dim device tensors: the four
-        losses, total_loss, and grad_norm, the global norm of this step's
-        gradient before clipping.
+        (B, S, latent) when given. Returns 0-dim device tensors: the terms
+        of the model's loss (SeqVaeTeb's four losses and total_loss), and
+        grad_norm, the global norm of this step's gradient before
+        clipping.
         """
         self._beta.fill_(beta)
         with profiling.span("trainer.eager_step"):
@@ -275,7 +279,8 @@ class Trainer:
         """The step's device work on the fields as tensors (the body that
         `train.graphs.capture_step` records): everything `train_step` does
         but count the step. Its stage marks (`utils.profiling`): a start,
-        the model's `encode` and `decode`, `decode` again after the loss,
+        the model's `encode` and `decode` (and whatever marks its decoder
+        sets between them), `decode` again after the loss,
         `decode_backward`, `encode_backward` at the end of the backward, and
         `optimizer`."""
         with profiling.stages("step", self.device):
@@ -285,7 +290,7 @@ class Trainer:
             with (runner.noise() if runner else contextlib.nullcontext()):
                 out = model(y_st, y_ph, x_ph, deterministic=False,
                             generator=self.generator, eps=eps)
-            losses = compute_loss(out, y_st, y_ph, y_raw, beta=self._beta)
+            losses = model.loss(out, y_st, y_ph, y_raw, self._beta)
             profiling.mark("decode")
             self.optimizer.zero_grad(set_to_none=True)
             losses["total_loss"].backward()
@@ -413,8 +418,9 @@ class Trainer:
         and its losses, over the data group's rows under a mesh; changes
         no state."""
         y_st, y_ph, x_ph, y_raw = self._prep(*self._batch(batch))
-        out = self.model.eval()(y_st, y_ph, x_ph, deterministic=True)
-        losses = compute_loss(out, y_st, y_ph, y_raw, beta=beta)
+        model = self.model.eval()
+        out = model(y_st, y_ph, x_ph, deterministic=True)
+        losses = model.loss(out, y_st, y_ph, y_raw, beta)
         return self.runner.mean(losses) if self.runner else losses
 
     # -- state ---------------------------------------------------------------
