@@ -13,6 +13,8 @@ in depth groups or with their weights streamed, on an NVIDIA GPU.
     python3 chip_smoke.py --capture   # phases 1, 2 and 14, printing no result
     python3 chip_smoke.py --coverage  # phases 1, 2 and 15, printing no result
     python3 chip_smoke.py --upsample  # phases 1, 2 and 16, printing no result
+    python3 chip_smoke.py --layer-norm  # phases 1, 2 and 17, printing no result
+    python3 chip_smoke.py --layer-norm-main  # phase 17 (c), its last line JSON
 
 Run with --kernels, --serve or --grid from a copy placed at the root of
 another checkout, it times that checkout's kernels or serving path (the
@@ -24,7 +26,8 @@ Phases, each of which raises on failure (exit code 1):
   1. device: CUDA must be present (exit 2 otherwise, before any result);
   2. build the wavefront kernels (vae_teb_tpu_torch/kernels/wavefront_fwd.cu,
      wavefront_bwd.cu, wavefront_grid_fwd.cu and wavefront_grid_bwd.cu)
-     and the upsample kernels (upsample.cu), one nvcc each, in parallel,
+     the upsample kernels (upsample.cu) and the LayerNorm kernels
+     (layer_norm.cu), one nvcc each, in parallel,
      for sm_90a; print
      each instantiation's ptxas registers and spills, and the launch plan
      of each main-path batch (rows per cluster, clusters of 8 CTAs, shared
@@ -259,7 +262,24 @@ Phases, each of which raises on failure (exit code 1):
      a replay of the captured step (4 forward in an eval forward), each
      upsample kernel's device time in place from the profiler, and no
      upsample_linear1d kernel; `--upsample` runs this phase alone;
- 17. print the card's nvidia-smi name and power limit, one JSON line for
+ 17. the LayerNorm kernels (kernels/layer_norm.cu): (a) at the main path's
+     shapes, (38400, 16 / 32 / 64 / 130 / 458) and (128, 4800), the
+     forward and backward against the float64 plain version (within 4x
+     PyTorch's own float32 LayerNorm's error, or 2e-6 of max), the
+     backward equal to itself across runs; device times (10 calls in a
+     CUDA graph, its replay over 10, median of 15) of the kernels, the
+     plain versions and PyTorch's LayerNorm forward and backward, beside
+     the bytes bound; (b) host us a call (200 calls unsynchronized, the
+     four kinds in turns, median of 61 rounds) of the eval path, a
+     blocks.LayerNorm module and the bare wrapper, against an
+     nn.LayerNorm module's and F.layer_norm's, at (38400, 32) and (1200,
+     64), failing where ours is slower in three rounds of four or more;
+     (c) in a process of its own (`--layer-norm-main`), SeqVaeTeb at
+     B=128: 115 launches each way in an eager train step and in a replay
+     of the captured step (115 forward in an eval forward), the kernels'
+     device time in place from the profiler, and no PyTorch LayerNorm
+     kernel; `--layer-norm` runs this phase alone;
+ 18. print the card's nvidia-smi name and power limit, one JSON line for
      the kernels (with their bf16 launches in each of phases 6, 7 and 8,
      counted from 0 at that phase's start, the serving forward's launches
      in phase 10, in phase 11 the sessions' and the loaded programs', and
@@ -272,8 +292,8 @@ Phases, each of which raises on failure (exit code 1):
      entries' rows at (1+1, 1024), B=32, fp32, launched by phase 15 (d)'s
      model runs and its captured step's replay, with every (d) kernel
      shape's numbers, `by_shape`; the upsample entries' rows with phase
-     16's numbers, `by_shape`, and launches), and last {"ok": true, "device":
-     {...}}.
+     16's numbers, `by_shape`, and launches; the LayerNorm entries' rows
+     with phase 17's), and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -4586,17 +4606,290 @@ def upsample_phase(device):
                  "replay_ms": replay_ms}
 
 
+# the main path's LayerNorm shapes, (rows, width): B * S = 38,400 rows of
+# SeqVaeTeb's narrow widths and the forecaster's widest, and the raw heads'
+LAYER_NORM_SHAPES = ((38400, 16), (38400, 32), (38400, 64), (38400, 130),
+                     (38400, 458), (128, 4800))
+LAYER_NORM_RUN = 10       # calls a timed graph in phase 17 (a)
+LAYER_NORM_HOST = ((38400, 32), (1200, 64))   # phase 17 (b)
+HOST_CALLS = 200
+# PyTorch's own LayerNorm kernels, which the main path must not launch
+LIBRARY_LAYER_NORM = ("RowwiseMoments", "vectorized_layer_norm",
+                      "LayerNormForward", "GammaBetaBackward",
+                      "layer_norm_grad_input", "LayerNormBackward")
+
+
+def _layer_norm_bound_ms(rows, width, way):
+    """Bytes at 3.35 TB/s: the forward reads x and writes y and the row
+    statistics; the backward reads x, dy and the statistics and writes
+    dx (the parameters and their gradients are a row each)."""
+    tensors = 2 if way == "fwd" else 3
+    return rows * (tensors * width + 2) * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def _host_us(fns, rounds=61):
+    """{name: [host time (us) of one call, a round each]} of the calls
+    `fns` ({name: fn}), each timed over HOST_CALLS calls made without
+    synchronizing (the card's queue keeps up), the calls taking turns in
+    each of `rounds` rounds (the host's noise falls on all alike, so two
+    calls' samples of one round form a pair)."""
+    samples = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            samples[name].append((time.perf_counter() - t0) / HOST_CALLS
+                                 * 1e6)
+    torch.cuda.synchronize()
+    return samples
+
+
+def _graph_ms(fn, runs=LAYER_NORM_RUN):
+    """Device time (ms) of one fn() call: `runs` calls captured in a CUDA
+    graph, its replay timed by `cuda_time_ms`, over `runs` (so the host's
+    cost of a call stays out)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    ms = cuda_time_ms(graph.replay) / runs
+    del graph
+    return ms
+
+
+def _layer_norm_kernels(prof):
+    """The LayerNorm kernels' device times (ms) in a profile, as (name,
+    ms), and the names of PyTorch's LayerNorm kernels it holds."""
+    from vae_teb_tpu_torch.profile_train import _kernels
+    kernels = _kernels(prof)
+    ours = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in kernels if "layer_norm_fwd_" in e.name
+            or "layer_norm_bwd_" in e.name]
+    library = sorted({e.name for e in kernels
+                      if any(k in e.name for k in LIBRARY_LAYER_NORM)})
+    return ours, library
+
+
+def layer_norm_phase(device):
+    """Phase 17: the LayerNorm kernels (kernels/layer_norm.cu). (a) At each
+    of LAYER_NORM_SHAPES: y, dx, dgamma and dbeta against the float64
+    plain version, within 4x the error of PyTorch's float32 LayerNorm
+    (forward and autograd) or 2e-6 of max; the backward equal to itself
+    across runs; device times (`_graph_ms`) of the kernels, the plain
+    versions and PyTorch's native_layer_norm and native_layer_norm_backward
+    (`library_ms`), beside the bytes bound. (b) Host us a call of the eval
+    path (`_host_us`): a blocks.LayerNorm module under inference_mode
+    against an nn.LayerNorm module with the same eps, and
+    `layer_norm_rows` against F.layer_norm, at LAYER_NORM_HOST, failing
+    where ours is slower in three rounds of four or more, paired by round.
+    (c) `layer_norm_main_phase`, in a process of its own. Returns {(way,
+    rows, width): (ms, plain_ms, library_ms, bound_ms, err)}, (b)'s
+    {(rows, width): {...}} and (c)'s {"launches": {...}, "forward_ms":
+    ..., "replay_ms": ...}."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from vae_teb_tpu_torch.kernels import (layer_norm_bwd,
+                                           layer_norm_bwd_plain,
+                                           layer_norm_fwd,
+                                           layer_norm_fwd_plain,
+                                           layer_norm_rows)
+    from vae_teb_tpu_torch.models.blocks import LAYER_NORM_EPS, LayerNorm
+    log(f"layer norm: card {card()}")
+    eps = LAYER_NORM_EPS
+    gen = torch.Generator(device=device).manual_seed(17)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    err = lambda got, want: ((got.double() - want).abs().max()
+                             / want.abs().max()).item()
+    out, failed = {}, []
+    for rows, W in LAYER_NORM_SHAPES:
+        x, dy = 3 * rand(rows, W) + 1, rand(rows, W)
+        gamma, beta = 1 + 0.1 * rand(W), 0.1 * rand(W)
+        y, mean, rstd = layer_norm_fwd(x, gamma, beta, eps)
+        grads = layer_norm_bwd(x, dy, mean, rstd, gamma)
+        again = layer_norm_bwd(x, dy, mean, rstd, gamma)
+        x64, g64, b64, dy64 = (t.double() for t in (x, gamma, beta, dy))
+        want_y, mean64, rstd64 = layer_norm_fwd_plain(x64, g64, b64, eps)
+        want = (want_y,) + layer_norm_bwd_plain(x64, dy64, mean64, rstd64,
+                                                g64)
+        xl, gl, bl = (t.clone().requires_grad_(True) for t in (x, gamma, beta))
+        yl = F.layer_norm(xl, (W,), gl, bl, eps)
+        library = (yl.detach(),) + torch.autograd.grad(yl, (xl, gl, bl), dy)
+        label = f"layer norm (a) ({rows}, {W})"
+        errs = []
+        for name, got, w, lib in zip(("y", "dx", "dgamma", "dbeta"),
+                                     (y,) + grads, want, library):
+            e, bar = err(got, w), max(4 * err(lib, w), 2e-6)
+            errs.append(e)
+            log(f"{label} {name}: {e:.3g} of max from float64 (PyTorch's "
+                f"{err(lib, w):.3g}, bar {bar:.3g})")
+            if e > bar:
+                failed.append(f"{label} {name}: {e:.3g} > {bar:.3g}")
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            failed.append(f"{label}: the backward differs between two runs")
+        del x64, g64, b64, dy64, want_y, mean64, rstd64, want, xl, yl, library
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [W], gamma,
+                                                           beta, eps)
+        for way, kernel, plain, lib, e in (
+                ("fwd", lambda: layer_norm_fwd(x, gamma, beta, eps),
+                 lambda: layer_norm_fwd_plain(x, gamma, beta, eps),
+                 lambda: torch.ops.aten.native_layer_norm(x, [W], gamma,
+                                                          beta, eps),
+                 errs[0]),
+                ("bwd", lambda: layer_norm_bwd(x, dy, mean, rstd, gamma),
+                 lambda: layer_norm_bwd_plain(x, dy, mean, rstd, gamma),
+                 lambda: torch.ops.aten.native_layer_norm_backward(
+                     dy, x, [W], lmean, lrstd, gamma, beta,
+                     [True, True, True]),
+                 max(errs[1:]))):
+            ms, plain_ms, library_ms = (_graph_ms(f)
+                                        for f in (kernel, plain, lib))
+            bound_ms = _layer_norm_bound_ms(rows, W, way)
+            out[(way, rows, W)] = (ms, plain_ms, library_ms, bound_ms, e)
+            log(f"{label} {way}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms,"
+                f" share of bound {100 * bound_ms / ms:.1f}%")
+        del x, dy, y, mean, rstd, grads, again, lmean, lrstd
+    # (b) host time a call of the eval path
+    host = {}
+    for rows, W in LAYER_NORM_HOST:
+        module = LayerNorm(W).to(device).eval()
+        library = nn.LayerNorm(W, eps=eps).to(device).eval()
+        x = rand(rows, W)
+        with torch.inference_mode():
+            samples = _host_us({
+                "module": lambda: module(x),
+                "nn_layer_norm": lambda: library(x),
+                "wrapper": lambda: layer_norm_rows(x, module.weight,
+                                                   module.bias, eps),
+                "f_layer_norm": lambda: F.layer_norm(
+                    x, (W,), module.weight, module.bias, eps)})
+        host[(rows, W)] = us = {k: statistics.median(v)
+                                for k, v in samples.items()}
+        log(f"layer norm (b) ({rows}, {W}) host us a call: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+        for ours, theirs in (("module", "nn_layer_norm"),
+                             ("wrapper", "f_layer_norm")):
+            # paired by round: slower only where it loses in at least
+            # three rounds of four (a shared host moves both by more than
+            # the medians' gap)
+            gaps = [a - b for a, b in zip(samples[ours], samples[theirs])]
+            q1, median, q3 = statistics.quantiles(gaps, n=4)
+            lost = sum(g > 0 for g in gaps)
+            log(f"layer norm (b) ({rows}, {W}) {ours} - {theirs}: median "
+                f"{median:.2f} us, quartiles {q1:.2f} / {q3:.2f}, slower in "
+                f"{lost} of {len(gaps)} rounds")
+            us[f"{ours}_gap_us"] = median
+            if q1 > 0:
+                failed.append(f"layer norm (b) ({rows}, {W}): {ours} slower "
+                              f"than {theirs} in {lost} of {len(gaps)} "
+                              f"rounds, median {median:.2f} us")
+    # (c) the main path at B=128, in a process of its own
+    import os
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--layer-norm-main"], capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    main_path = {}
+    if proc.returncode or not lines:
+        failed.append(f"layer norm (c): exit {proc.returncode}: "
+                      f"{proc.stderr[-3000:]}")
+    else:
+        main_path = json.loads(lines[-1])
+        failed += main_path.pop("failed")
+    if failed:
+        raise AssertionError("phase 17 checks failed:\n" + "\n".join(failed))
+    return out, host, main_path
+
+
+def layer_norm_main_phase(device):
+    """Phase 17 (c), run by `--layer-norm-main` in a process of its own
+    (late in the whole smoke's process the profiler's traces held 109 of
+    these 115 kernels, and 339-340 of 345, where the launch counts were
+    exact; a fresh process's hold them all): SeqVaeTeb at B=128, the
+    launches of one eval forward, one eager train step and one replay of
+    the captured step, the kernels' device time in place from the
+    profiler, and no PyTorch LayerNorm kernel. Returns {"launches": {...},
+    "forward_ms": ..., "replay_ms": ..., "failed": [...]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_teb_tpu_torch import (SeqVaeTeb, Trainer, TrainerConfig,
+                                   init_parameters)
+    from vae_teb_tpu_torch.kernels import launch_counts
+    gen = torch.Generator(device=device).manual_seed(17)
+    model = init_parameters(SeqVaeTeb(), seed=INIT_SEED).to(device)
+    keys = (("layer_norm_fwd", "layer_norm_fwd_f32"),
+            ("layer_norm_bwd", "layer_norm_bwd_f32"))
+    widths = {"fhr_st": 43, "fhr_ph": 44, "fhr_up_ph": 130, "fhr": None}
+    batch = lambda: {f: torch.randn((1, 128, 300, c) if c else (1, 128, 4800),
+                                    generator=gen, device=device)
+                     for f, c in widths.items()}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    launches, library, failed = {}, set(), []
+
+    def counted(name, fn):
+        before = launch_counts()
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches[name] = [(launch_counts() - before)[k] for k in keys]
+        ours, lib = _layer_norm_kernels(prof)
+        library.update(lib)
+        return sum(ms for _, ms in ours), len(ours)
+
+    fields = batch()
+    with torch.inference_mode():
+        forward_ms = counted("forward", lambda: model.eval()(
+            *(fields[f][0] for f in ("fhr_st", "fhr_ph", "fhr_up_ph"))))
+    trainer = Trainer(model.train(), TrainerConfig(steps_per_execution=1),
+                      device)
+    counted("train_step",   # eager, then captured
+            lambda: trainer.train_multi_step(batch(), 1e-5))
+    replay_ms = counted("captured_replay",
+                        lambda: trainer.train_multi_step(batch(), 1e-5))
+    (graph,) = trainer.graphs.values()
+    log(f"layer norm (c) B=128 launches (fwd, bwd): {launches}; device "
+        f"time (ms, kernels): serving forward {forward_ms}, replay "
+        f"{replay_ms}; PyTorch LayerNorm kernels: {sorted(library)}")
+    want = {"forward": [115, 0], "train_step": [115, 115],
+            "captured_replay": [115, 115]}
+    if launches != want or graph.replays != 1 or library:
+        failed.append(f"layer norm (c): launches {launches}, expected "
+                      f"{want}; {graph.replays} replays; PyTorch LayerNorm "
+                      f"kernels {sorted(library)}")
+    if forward_ms[1] != 115 or replay_ms[1] != 345:
+        failed.append(f"layer norm (c): {forward_ms[1]} / {replay_ms[1]} "
+                      "LayerNorm kernels in the profiles, expected 115 / "
+                      "345 (a backward entry runs two)")
+    return {"launches": launches, "forward_ms": forward_ms[0],
+            "replay_ms": replay_ms[0], "failed": failed}
+
+
 def main(argv) -> int:
     kernels_only, serve_only = argv == ["--kernels"], argv == ["--serve"]
     grid_only, parallel_only = argv == ["--grid"], argv == ["--parallel"]
     capture_only, coverage_only = argv == ["--capture"], argv == ["--coverage"]
     upsample_only = argv == ["--upsample"]
+    layer_norm_only = argv == ["--layer-norm"]
+    layer_norm_main_only = argv == ["--layer-norm-main"]
     if argv and not (kernels_only or serve_only or grid_only
                      or parallel_only or capture_only or coverage_only
-                     or upsample_only):
+                     or upsample_only or layer_norm_only
+                     or layer_norm_main_only):
         print("usage: chip_smoke.py [--kernels | --serve | --grid | "
-              "--parallel | --capture | --coverage | --upsample]",
-              file=sys.stderr)
+              "--parallel | --capture | --coverage | --upsample | "
+              "--layer-norm | --layer-norm-main]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4610,7 +4903,7 @@ def main(argv) -> int:
 
     from vae_teb_tpu_torch.kernels import build
     sources = ("wavefront_fwd.cu", "wavefront_bwd.cu", "wavefront_grid_fwd.cu",
-               "wavefront_grid_bwd.cu", "upsample.cu")
+               "wavefront_grid_bwd.cu", "upsample.cu", "layer_norm.cu")
     t0 = time.perf_counter()
     build.load_all(sources)
     log(f"built {', '.join(sources)} in parallel in "
@@ -4641,6 +4934,12 @@ def main(argv) -> int:
     if upsample_only:         # phase 16 alone
         upsample_phase(device)
         return 0
+    if layer_norm_only:       # phase 17 alone
+        layer_norm_phase(device)
+        return 0
+    if layer_norm_main_only:  # phase 17 (c), its last line JSON
+        print(json.dumps(layer_norm_main_phase(device)))
+        return 0
     check_residency(device)
 
     kernels = check_kernels(device)
@@ -4660,6 +4959,7 @@ def main(argv) -> int:
     captured = capture_phase(device)
     coverage, cov_report = coverage_phase(device)
     upsample, upsample_main = upsample_phase(device)
+    layer_norm, layer_norm_host, layer_norm_main = layer_norm_phase(device)
 
     case = ((4, 4), 32, torch.float32)
     entries = (("wavefront_fwd", "wavefront_fwd.cu", 80, launches, "fwd",
@@ -4790,6 +5090,18 @@ def main(argv) -> int:
                 upsample[(way, C, S, dt)]))
                 for C, S in UPSAMPLE_SHAPES
                 for dt in (torch.float32, torch.bfloat16)}})
+    # the LayerNorm kernels, which replace no TPU kernel: each shape's
+    # numbers, the eval path's host time, the main path's launches at B=128
+    for way in ("fwd", "bwd"):
+        rows.append({
+            "name": f"layer_norm_{way}", "route": "cuda",
+            "source": "vae_teb_tpu_torch/kernels/layer_norm.cu",
+            "replaces": None, **layer_norm_main,
+            "host_us": {f"({r}, {w})": us
+                        for (r, w), us in layer_norm_host.items()},
+            "by_shape": {f"({r}, {w})": dict(zip(
+                ("ms", "plain_ms", "library_ms", "bound_ms", "max_err"),
+                layer_norm[(way, r, w)])) for r, w in LAYER_NORM_SHAPES}})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

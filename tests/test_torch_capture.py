@@ -412,8 +412,9 @@ def test_captured_steps_match_eager_on_card(cuda_device, hidden):
     weight gradient and in the reflect pad's backward: two eager steps
     from one state differ in most gradient leaves), so the captured run is
     held as chip_smoke.py's phase 14 holds it (`_assert_like_eager`). The
-    replays launched the wavefront kernels once a step each, and the
-    decoder's upsample kernels four times each way."""
+    replays launched the wavefront kernels once a step each, the
+    decoder's upsample kernels four times each way, and the LayerNorm
+    kernels once each way for each of the model's 115 LayerNorms."""
     from vae_teb_tpu_torch.kernels import launch_counts
     model = init_parameters(SeqVaeTeb(lstm_hidden_dim=hidden,
                                       lstm_num_layers=2, seq_len=S), seed=1)
@@ -432,14 +433,20 @@ def test_captured_steps_match_eager_on_card(cuda_device, hidden):
                 ("wavefront_bwd", f"{prefix}bwd_f32"))
     up, up_bwd = (("upsample_linear2x_fwd", "upsample_linear2x_fwd_f32"),
                   ("upsample_linear2x_bwd", "upsample_linear2x_bwd_f32"))
+    ln, ln_bwd = (("layer_norm_fwd", "layer_norm_fwd_f32"),
+                  ("layer_norm_bwd", "layer_norm_bwd_f32"))
     assert graph.launches == {res: 1, bwd: 1,
                               ("wavefront_fwd", "residual_launches"): 1,
                               ("wavefront_bwd", "launches"): 1,
                               up: 4, up_bwd: 4,
                               ("upsample_linear2x_fwd", "launches"): 4,
-                              ("upsample_linear2x_bwd", "launches"): 4}
+                              ("upsample_linear2x_bwd", "launches"): 4,
+                              ln: 115, ln_bwd: 115,
+                              ("layer_norm_fwd", "launches"): 115,
+                              ("layer_norm_bwd", "launches"): 115}
     assert launched[res] == launched[bwd] == 24   # 6 runs of 4 steps
     assert launched[up] == launched[up_bwd] == 96
+    assert launched[ln] == launched[ln_bwd] == 115 * 24
 
 
 @pytest.mark.cuda

@@ -312,7 +312,8 @@ def test_captured_forecaster_matches_eager_on_card(cuda_device):
     gradients adding atomically, so a replay is held within twice the
     spread of the eager runs, and the first step's losses exactly). Every
     replay launched the encoders' cluster pair and the decoder's grid pair
-    once each."""
+    once each, and the LayerNorm kernels once each way for each of the
+    model's 121 LayerNorms."""
     from test_torch_capture import _assert_like_eager, _card_runs
 
     from vae_teb_tpu_torch.kernels import launch_counts
@@ -339,7 +340,12 @@ def test_captured_forecaster_matches_eager_on_card(cuda_device):
         ("wavefront_fwd", "wavefront_grid_fwd_res_f32"): 1,
         ("wavefront_bwd", "wavefront_grid_bwd_f32"): 1,
         ("wavefront_fwd", "residual_launches"): 2,
-        ("wavefront_bwd", "launches"): 2}
+        ("wavefront_bwd", "launches"): 2,
+        ("layer_norm_fwd", "layer_norm_fwd_f32"): 121,
+        ("layer_norm_bwd", "layer_norm_bwd_f32"): 121,
+        ("layer_norm_fwd", "launches"): 121,
+        ("layer_norm_bwd", "launches"): 121}
     # 6 runs of 4 steps: every eager step and every replay
     assert launched[("wavefront_fwd", "wavefront_grid_fwd_res_f32")] == 24
     assert launched[("wavefront_bwd", "wavefront_grid_bwd_f32")] == 24
+    assert launched[("layer_norm_bwd", "layer_norm_bwd_f32")] == 121 * 24

@@ -42,7 +42,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..kernels import wavefront as _wavefront
-from ..kernels import linear_upsample, wavefront_recurrence
+from ..kernels import (layer_norm_op, layer_norm_rows, linear_upsample,
+                       wavefront_recurrence)
 from ..parallel.collectives import all_reduce_sum, copy_to_group, gather_columns
 
 LAYER_NORM_EPS = 1e-6   # flax nn.LayerNorm default
@@ -145,16 +146,27 @@ class Conv1d(nn.Conv1d):
 class LayerNorm(nn.LayerNorm):
     """flax `nn.LayerNorm(dtype=)` (eps 1e-6): with a compute dtype the
     statistics, the normalization, scale and shift run in float32 and the
-    output is cast to it; None is `nn.LayerNorm`."""
+    output is cast to it; None is `nn.LayerNorm`'s arithmetic.
+
+    On CUDA it runs the hand-written kernel pair (`kernels.layer_norm_rows`,
+    its backward a kernel too); on the CPU `nn.LayerNorm.forward`. While
+    tracing it calls the operator `kernels.layer_norm_op`, so a program
+    that `torch.export` records runs what the live model runs: the kernel
+    on the card, F.layer_norm on the CPU."""
 
     def __init__(self, features: int, dtype: Dtype = None):
         super().__init__(features, eps=LAYER_NORM_EPS)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype is None:
-            return super().forward(x)
-        return super().forward(x.float()).to(self.dtype)
+        xf = x if self.dtype is None else x.float()
+        if torch.compiler.is_compiling():
+            y = layer_norm_op(xf, self.weight, self.bias, self.eps)
+        elif xf.is_cuda:
+            y = layer_norm_rows(xf, self.weight, self.bias, self.eps)
+        else:
+            y = super().forward(xf)
+        return y if self.dtype is None else y.to(self.dtype)
 
 
 class BatchNorm(nn.Module):
